@@ -2,7 +2,8 @@
 
 The reference is single-host task-parallel; here the same graph evaluates a
 whole batch of canvases data-parallel over a `jax.sharding.Mesh` (GSPMD
-inserts the collectives). Uses 8 virtual CPU devices so it runs anywhere:
+inserts the collectives). On the GPU the mesh spans the cards; on the CPU
+(`JAX_PLATFORMS=cpu`) it spans 8 virtual devices:
 
     python examples/batch_sharded.py
 """
@@ -14,9 +15,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
 
-import jax  # noqa: E402
-
-jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 

@@ -13,9 +13,6 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 

@@ -15,9 +15,6 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
 
 from kanter_core_tpu import (  # noqa: E402
     MixType,

@@ -23,11 +23,6 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import time
 
-import jax
-
-# CPU by default like every example (self-contained, no device needed);
-# must run before any backend probe or the TPU plugin wins
-jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 

@@ -17,10 +17,6 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-
 
 from kanter_core_tpu import (
     MixType, Node, NodeGraph, NodeType, ResizePolicy, Size, SlotId,
@@ -72,8 +68,7 @@ def main_segmented() -> None:
     partition SPLITS at the Distance boundary: the bucketable majority
     rides cached bucketed evaluators (one compile per bucket) and only
     the small Distance segment dense-compiles per size — instead of
-    recompiling the whole pipeline per size (r5; on chip this measured a
-    4.4× faster median drag tick on a flagship-tail graph)."""
+    recompiling the whole pipeline per size."""
     import numpy as np
 
     from kanter_core_tpu import TextureProcessor

@@ -6,7 +6,7 @@ bindings, so JAX transforms compose with it for free: this module exposes
 gradients w.r.t. `Value` nodes and a small fitting loop (inverse procedural
 texturing — recover graph parameters from a target image by gradient
 descent). No counterpart exists in the reference; this is a capability the
-TPU-native design gets structurally.
+JAX design gets structurally.
 
 Notes:
 - Gradients flow through every op (all kernels are plain jnp

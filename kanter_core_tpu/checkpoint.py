@@ -85,7 +85,7 @@ def save_checkpoint(live_graph: LiveGraph, path: str) -> None:
     # The device→host materializations run OUTSIDE the graph lock: a plane's
     # contents are immutable after commit (commits replace whole SlotData
     # objects; planes only transition tiers, under their own locks), and a
-    # multi-GB checkpoint over the remote tunnel can stall for minutes —
+    # multi-GB checkpoint can take seconds to copy out —
     # holding the LiveGraph lock across it would block every edit, request,
     # and engine commit for the duration. Only the graph SNAPSHOT (topology,
     # states, plane references) needs the lock.

@@ -1,13 +1,13 @@
 """Whole-graph fusion compiler: dirty subgraph → ONE jitted XLA program.
 
-This is the TPU-native answer to the reference's thread-per-node scheduler
+This is the XLA answer to the reference's thread-per-node scheduler
 (`/root/reference/src/engine.rs:288-306`): instead of evaluating a DAG node
 by node with intermediate buffers, the graph is traced symbolically — every
 node type maps to the same traceable kernels the eager engine uses — and
-compiled by XLA into a single fused program over HBM-resident channel
+compiled by XLA into a single fused program over device-resident channel
 planes. Elementwise chains (value/mix/separate/combine/invert/…) fuse into a
 handful of kernels; intermediate planes that no target needs are never
-materialized in HBM.
+materialized in device memory.
 
 Runtime-variable leaves become program *arguments* so interactive edits skip
 recompilation where possible:
@@ -199,7 +199,6 @@ def _zeros(shape):
 
 
 def _as_type(img: ImgVal, rgba: bool) -> ImgVal:
-    import jax
     import jax.numpy as jnp
 
     if img.is_rgba == rgba:
@@ -213,17 +212,15 @@ def _as_type(img: ImgVal, rgba: bool) -> ImgVal:
         for p in img.planes[:3]
     )
     s = (r + g) + b
-    # /3 must round like glibc on every backend (CLAUDE.md: TPU div is
-    # ~1 ulp loose via reciprocal-multiply) or rgba→gray planes break the
-    # cross-backend f32-bit determinism the recipe cache relies on. On CPU
-    # the divisor must be const-guarded: XLA:CPU rewrites division by a
-    # compile-time constant into reciprocal-multiply (measured 6422/16384
-    # f32-bit diffs vs the reference's true division for /3)
-    if jax.default_backend() == "cpu":
-        return ImgVal([s / _const_guard(jnp.full_like(s, jnp.float32(3.0)))])
-    from .ops.exact_math import corrected_div
+    # /3 must round like glibc on every backend (ops/exact_math.py: the
+    # GPU's divide is up to 2 ulp loose) or rgba→gray planes break the
+    # cross-backend f32-bit determinism the recipe cache relies on. A plain
+    # divide must be const-guarded: XLA rewrites division by a compile-time
+    # constant into reciprocal-multiply (measured 6422/16384 f32-bit diffs
+    # vs the reference's true division for /3)
+    from .ops.exact_math import exact_div
 
-    return ImgVal([corrected_div(s, jnp.full_like(s, 3.0))])
+    return ImgVal([exact_div(s, _const_guard(jnp.full_like(s, jnp.float32(3.0))))])
 
 
 def _from_value(size: Size, value: float, rgba: bool) -> ImgVal:
@@ -247,10 +244,10 @@ class GraphCompiler:
         # CompiledGraph (leaf uploads + output downcast) and the ops' entry
         # upcasts — the symbolic compiler is dtype-agnostic by design.
         # False when the program must avoid Pallas entirely (vmapped mesh
-        # programs — Mosaic custom calls aren't GSPMD-partitionable and
+        # programs — Pallas custom calls aren't GSPMD-partitionable and
         # shard_map doesn't compose with the batch vmap); ops then use jnp
         # lowerings. `mesh` instead keeps kernels viable under GSPMD by
-        # emitting their shard_map'd forms (ops/pallas_blur.py).
+        # emitting their shard_map'd forms (ops/blur_triton.py).
         self.pallas_ok = pallas_ok
         self.mesh = mesh
         self.mesh_axis = mesh_axis  # spatial axis name for shard_map kernels
@@ -440,12 +437,7 @@ class GraphCompiler:
             max_dist = args[f"{prefix}dist_{nid}"]
             return [(
                 SlotId(0),
-                ImgVal([distance_plane(
-                    inp.planes[0], max_dist,
-                    # mesh: GSPMD can't partition the Mosaic step kernel;
-                    # the jnp rolls lower to collective permutes instead
-                    pallas_ok=self.pallas_ok and self.mesh is None,
-                )]),
+                ImgVal([distance_plane(inp.planes[0], max_dist)]),
             )]
 
         if kind == K.AMBIENT_OCCLUSION:
@@ -612,16 +604,12 @@ class GraphCompiler:
                     outs = warp_planes_mesh(
                         inp.planes, strength.planes[0], b["k"],
                         self.mesh, axis, halo, h, w,
-                        table=(b["pairs"], b["npairs"]) if "pairs" in b else None,
-                        pallas_ok=self.pallas_ok,
                     )
                     return [(SlotId(0), ImgVal(list(outs)))]
             outs = warp_planes(
                 inp.planes, strength.planes[0],
                 _np.arange(h, dtype=_np.int32), _np.arange(w, dtype=_np.int32),
                 b["k"], h, w,
-                table=(b["pairs"], b["npairs"]) if "pairs" in b else None,
-                halo=halo, pallas_ok=self.pallas_ok,
             )
             return [(SlotId(0), ImgVal(list(outs)))]
 
@@ -730,9 +718,7 @@ class CompiledGraph:
         # f32 exactly like the default pipeline and the exact-math
         # machinery stays engaged. ALIASING ops (Output/Separate/Combine/
         # Graph re-keying) pass stored planes through untouched, and only
-        # committed outputs downcast once (`fn`'s `store` below). Per-op
-        # bf16 rounding was measured SLOWER on the chip — XLA:TPU wraps
-        # every VPU op in converts (0.21 vs 0.11 ms at depth 2).
+        # committed outputs downcast once (`fn`'s `store` below).
         self.dtype = resolve_dtype(dtype)
         self.node_graph = node_graph
         self.preset = dict(preset or {})

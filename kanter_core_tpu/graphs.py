@@ -202,3 +202,120 @@ def resize_pyramid_graph(sizes=(512, 256, 128, 64), filt: ResizeFilter = ResizeF
     out = graph.add_node(Node(NodeType.OutputRgba("out")))
     graph.connect(prev, out, SlotId(0), SlotId(0))
     return graph
+
+
+def flagship_graph(canvas: int) -> tuple[NodeGraph, list[NodeId], NodeId]:
+    """Representative fused texture pipeline: 4 gray inputs → combine →
+    8× invert/blend chain → ×FBM-noise → ×Brick-pattern mask →
+    ×mortar Distance spread → ×Voronoi cell pores → Lighten radial Ramp
+    vignette → ×curvature edge-wear → ×multi-scale AO → height-to-normal
+    → blur → Hsv tint → noise-driven warp → output (covers elementwise
+    chains, all FOUR procedural sources — organic noise, the structured
+    cell lattice, the jittered cellular field, and the coordinate
+    gradient — two wrap stencils, four separable blurs at four sigmas,
+    the GLOBAL iterative jump-flood field whose rolls become collective
+    permutes under the mesh, the hexcone color adjust, and the
+    displacement gather in one program)."""
+    # BOUNDED chain (logistic-map steps, values stay in [0, 1] and are
+    # chaotically sensitive to the white Value): the original ±white
+    # invert/blend chain netted red − 4·white ≤ 0 everywhere, which
+    # SATURATED the Lighten vignette below (max(field, ramp) ≡ ramp) and
+    # mathematically DISCONNECTED the chain/Pattern/Distance/Voronoi
+    # stages from the output pixels — found in r5 when a white edit
+    # changed nothing (max-abs-diff 0.0; a ×(−0.2) rescale attempt also
+    # died — the resampler's reference [0,1] clamp zeroes negative 1×1
+    # Values on upscale). Every stage is now pixel-LIVE, pinned
+    # one-perturbation-per-stage by tests/test_flagship_liveness.py.
+    graph, inputs, white, chain_out = bounded_chain_graph(depth=8)
+    # extend with the stencil stage: separate → height-to-normal → output
+    prev = graph.get_parents(chain_out)[0]
+    graph.remove_node(chain_out)
+    separate = graph.add_node(Node(NodeType.SeparateRgba()))
+    graph.connect(prev, separate, SlotId(0), SlotId(0))
+    # modulate the height field by a tiling noise source (same canvas size,
+    # so no resample intervenes); LEFT = the gray chain keeps the mix gray
+    noise = graph.add_node(Node(NodeType.Noise(canvas, canvas, 4, 3, 9, 0.5)))
+    nmix = graph.add_node(Node(NodeType.Mix(MixType.MULTIPLY)))
+    graph.connect(separate, nmix, SlotId(0), SlotId(0))
+    graph.connect(noise, nmix, SlotId(0), SlotId(1))
+    # stamp a structured lattice into the height field: the Brick mask
+    # recesses mortar grooves (Pattern's integer-lattice source under the
+    # same mesh/tiled/bucketed compositions as everything downstream)
+    pat = graph.add_node(Node(NodeType.Pattern(
+        canvas, canvas, "Brick", cells_x=4, cells_y=8,
+        mortar=0.12, bevel=0.06, seed=3,
+    )))
+    pmix = graph.add_node(Node(NodeType.Mix(MixType.MULTIPLY)))
+    graph.connect(nmix, pmix, SlotId(0), SlotId(0))
+    graph.connect(pat, pmix, SlotId(0), SlotId(1))
+    # mortar spread: the jump-flood Distance fade of the INVERTED mask —
+    # seeds sit in the grooves, so the fade forms a max_dist-wide apron
+    # reaching INTO the bricks where the height field is nonzero (seeding
+    # from the bricks instead left the fade varying only inside grooves,
+    # where the mask multiply had already zeroed the field — Distance was
+    # pixel-NEAR-DEAD, caught by test_flagship_liveness). The one GLOBAL
+    # iterative op — under the mesh its JFA rolls lower to collective
+    # permutes, the most interesting GSPMD case in the op set.
+    one = graph.add_node(Node(NodeType.Value(1.0)))
+    inv = graph.add_node(Node(NodeType.Mix(MixType.SUBTRACT)))
+    # 1 − mask: the Value rides LEFT (left − right; left decides gray and
+    # the default MostPixels policy sizes both to the mask's canvas — the
+    # upscaled all-1.0 plane survives the resampler's [0,1] clamp)
+    graph.connect(one, inv, SlotId(0), SlotId(0))
+    graph.connect(pat, inv, SlotId(0), SlotId(1))
+    dst = graph.add_node(Node(NodeType.Distance(float(canvas) / 8.0)))
+    graph.connect(inv, dst, SlotId(0), SlotId(0))
+    dmix = graph.add_node(Node(NodeType.Mix(MixType.MULTIPLY)))
+    graph.connect(pmix, dmix, SlotId(0), SlotId(0))
+    graph.connect(dst, dmix, SlotId(0), SlotId(1))
+    pmix = dmix
+    # cellular pores: the Voronoi F2−F1 borders field (third procedural
+    # source — jittered-lattice nearest-two search) modulates the height
+    vor = graph.add_node(Node(NodeType.Voronoi(
+        canvas, canvas, cells_x=6, cells_y=6, jitter=0.85, seed=5,
+    )))
+    vmix = graph.add_node(Node(NodeType.Mix(MixType.MULTIPLY)))
+    graph.connect(pmix, vmix, SlotId(0), SlotId(0))
+    graph.connect(vor, vmix, SlotId(1), SlotId(1))
+    pmix = vmix  # downstream stages consume the pore-modulated field
+    # vignette: a radial Ramp (fourth procedural source — pure coordinate
+    # gradient) lightens the center of the height field
+    rmp = graph.add_node(Node(NodeType.Ramp(
+        canvas, canvas, "Radial", 0.0, 0.5, 0.5, 0.9,
+    )))
+    rmix = graph.add_node(Node(NodeType.Mix(MixType.LIGHTEN)))
+    graph.connect(pmix, rmix, SlotId(0), SlotId(0))
+    graph.connect(rmp, rmix, SlotId(0), SlotId(1))
+    pmix = rmix
+    # edge-wear stage: the height field's own curvature mask multiplies
+    # back into it (a second wrap stencil — Curvature's ±1 Laplacian —
+    # sharding over the mesh alongside h2n's)
+    curv = graph.add_node(Node(NodeType.Curvature(5.0)))
+    graph.connect(pmix, curv, SlotId(0), SlotId(0))
+    cmix = graph.add_node(Node(NodeType.Mix(MixType.MULTIPLY)))
+    graph.connect(pmix, cmix, SlotId(0), SlotId(0))
+    graph.connect(curv, cmix, SlotId(0), SlotId(1))
+    # occlusion stage: the height field's multi-scale AO mask (three wrap
+    # Gaussians at octave sigmas — the blur kernel's shard_map path under a
+    # mesh — plus the exact combine) darkens its own cavities
+    ao = graph.add_node(Node(NodeType.AmbientOcclusion(2.0, 1.0)))
+    graph.connect(cmix, ao, SlotId(0), SlotId(0))
+    amix = graph.add_node(Node(NodeType.Mix(MixType.MULTIPLY)))
+    graph.connect(cmix, amix, SlotId(0), SlotId(0))
+    graph.connect(ao, amix, SlotId(0), SlotId(1))
+    h2n = graph.add_node(Node(NodeType.HeightToNormal()))
+    graph.connect(amix, h2n, SlotId(0), SlotId(0))
+    blur = graph.add_node(Node(NodeType.Blur(1.2)))
+    graph.connect(h2n, blur, SlotId(0), SlotId(0))
+    # tint stage: Hsv hue/sat/value adjust of the RGBA normal map (the
+    # hexcone select tree; alpha passes through by alias)
+    hsv = graph.add_node(Node(NodeType.Hsv(25.0, 1.1, 0.95)))
+    graph.connect(blur, hsv, SlotId(0), SlotId(0))
+    # displacement stage: the same noise field drives a directional warp
+    # of the tinted normal map (bilinear wrap gathers in-program)
+    warp = graph.add_node(Node(NodeType.Warp(37.0, 5.0)))
+    graph.connect(hsv, warp, SlotId(0), SlotId(0))
+    graph.connect(noise, warp, SlotId(0), SlotId(1))
+    out = graph.add_node(Node(NodeType.OutputRgba("out")))
+    graph.connect(warp, out, SlotId(0), SlotId(0))
+    return graph, inputs, out

@@ -91,7 +91,7 @@ class LiveGraph:
         self.priority_propagator = PriorityPropagator()
         self.auto_update = False
         self.use_cache = False
-        # TPU-native fast path: compile the dirty ancestor closure of every
+        # Fused fast path: compile the dirty ancestor closure of every
         # request into ONE fused XLA program instead of per-node dispatches.
         # Observable semantics (states, change feed, commit-time cancel,
         # use_cache eviction) are identical; auto_update graphs always use
@@ -113,7 +113,7 @@ class LiveGraph:
         # set by the engine on a fatal kernel error (reference: engine panic,
         # `engine.rs:111-119`); awaits re-raise it instead of hanging.
         self.fatal_error: Optional[BaseException] = None
-        # --- edit history (TPU-native extension; the reference has no undo)
+        # --- edit history (extension; the reference has no undo)
         # Every topology-mutating call — or one whole `write()` transaction —
         # journals a pre-edit snapshot (the serde structure of node_graph;
         # topology only, a few KB). `undo()`/`redo()` restore by MINIMAL

@@ -85,7 +85,7 @@ class MixType(enum.Enum):
     MULTIPLY = "Multiply"
     DIVIDE = "Divide"
     POW = "Pow"
-    # TPU-native extension blend modes (no reference counterpart; classic
+    # Extension blend modes (no reference counterpart; classic
     # compositing modes every texture tool ships — semantics in ops/mix.py).
     # Appended AFTER the reference variants so `list(MixType)[..5]` indexing
     # and existing graph JSON stay stable:
@@ -213,19 +213,19 @@ class NodeTypeKind(enum.Enum):
     HEIGHT_TO_NORMAL = "HeightToNormal"
     SEPARATE_RGBA = "SeparateRgba"
     COMBINE_RGBA = "CombineRgba"
-    BLUR = "Blur"  # TPU-native extension: no reference counterpart
-    LEVELS = "Levels"  # TPU-native extension: no reference counterpart
-    NOISE = "Noise"  # TPU-native extension: no reference counterpart
-    GRADIENT_MAP = "GradientMap"  # TPU-native extension: no reference counterpart
-    TRANSFORM = "Transform"  # TPU-native extension: no reference counterpart
-    WARP = "Warp"  # TPU-native extension: no reference counterpart
-    PATTERN = "Pattern"  # TPU-native extension: no reference counterpart
-    CURVATURE = "Curvature"  # TPU-native extension: no reference counterpart
-    HSV = "Hsv"  # TPU-native extension: no reference counterpart
-    AMBIENT_OCCLUSION = "AmbientOcclusion"  # TPU-native extension: no reference counterpart
-    DISTANCE = "Distance"  # TPU-native extension: no reference counterpart
-    VORONOI = "Voronoi"  # TPU-native extension: no reference counterpart
-    RAMP = "Ramp"  # TPU-native extension: no reference counterpart
+    BLUR = "Blur"  # extension: no reference counterpart
+    LEVELS = "Levels"  # extension: no reference counterpart
+    NOISE = "Noise"  # extension: no reference counterpart
+    GRADIENT_MAP = "GradientMap"  # extension: no reference counterpart
+    TRANSFORM = "Transform"  # extension: no reference counterpart
+    WARP = "Warp"  # extension: no reference counterpart
+    PATTERN = "Pattern"  # extension: no reference counterpart
+    CURVATURE = "Curvature"  # extension: no reference counterpart
+    HSV = "Hsv"  # extension: no reference counterpart
+    AMBIENT_OCCLUSION = "AmbientOcclusion"  # extension: no reference counterpart
+    DISTANCE = "Distance"  # extension: no reference counterpart
+    VORONOI = "Voronoi"  # extension: no reference counterpart
+    RAMP = "Ramp"  # extension: no reference counterpart
 
 
 class NodeType:
@@ -292,8 +292,7 @@ class NodeType:
         the reference has no blur; sigma is in pixels of the input).
         `sigma` must be in (0, 256]: the tap table and the jnp roll
         chain are O(sigma) HOST/trace structures, so an absurd payload
-        (e.g. 1e9) would hang tap baking or compile — the same r4 hazard
-        class as the Warp staircase gate (ops/pallas_warp.warp_pairs)."""
+        (e.g. 1e9) would hang tap baking or compile."""
         sigma = float(sigma)
         if not (0.0 < sigma <= 256.0):
             raise TexProError(

@@ -35,8 +35,9 @@ Engine conventions:
   LLVM cannot contract them into one-rounding FMAs;
 - banded/bucketed twins replay Blur's gather-formulated vertical pass per
   scale and the SAME combine core, preserving the exact op sequence — the
-  chip battery row `ambient_occlusion` re-proves TPU↔CPU bit parity per
-  formulation (CLAUDE.md's formulation-context caveat);
+  device parity battery row `ambient_occlusion` (`kanter_core_tpu.parity`)
+  re-proves GPU↔CPU bit parity per formulation (CLAUDE.md's
+  formulation-context caveat);
 - gray input only (AO of an RGBA image is ill-defined), gray output; NaN
   heights propagate deterministically;
 - per-PIXEL scales like Curvature: resolution doubling halves feature
@@ -61,8 +62,8 @@ AO_SCALE_FACTORS = (1.0, 2.0, 4.0)
 #: shared scale weight (host-side f32 constant; it MULTIPLIES at runtime,
 #: which XLA:CPU does not rewrite — unlike constant division). The weights
 #: are equal BY CONSTRUCTION: ao_combine sums the occlusions before one
-#: shared multiply (see its docstring for the chip-measured factoring
-#: hazard that rules out per-term weights)
+#: shared multiply (see its docstring for the factoring hazard that rules
+#: out per-term weights)
 AO_SCALE_WEIGHTS = tuple(np.float32(1.0 / 3.0) for _ in AO_SCALE_FACTORS)
 
 
@@ -90,25 +91,24 @@ def ao_combine(center, blurred, strength):
     the height plane, `blurred` the per-scale blur outputs at the SAME
     rows, `strength` a traced f32 scalar.
 
-    TWO CHIP-MEASURED HAZARDS shaped this formulation (both new instances
-    of CLAUDE.md's formulation-context class, found by the first battery
-    runs and bisected with stage probes):
+    TWO simplifier HAZARDS shaped this formulation (both instances of
+    CLAUDE.md's formulation-context class, found by the parity battery and
+    bisected with stage probes):
 
     1. the per-term form `nc_mul(occ_0,w) + nc_mul(occ_1,w) + …` with
-       EQUAL weights diffed 2741/36503 f32 bits at the FIRST add —
-       XLA:TPU's algebraic simplifier FACTORS the common constant
-       (`a·w + b·w → (a+b)·w`), one rounding where CPU does three. Blur
-       never hits this because its tap weights are all distinct.
-    2. the two-multiply chain `strength·(w·occ)` diffed 9451/36503 —
-       the simplifier REASSOCIATES scalar multipliers into one plane
-       multiply (`s·(w·occ) → (s·w)·occ`).
+       EQUAL weights diffed at the FIRST add — XLA's algebraic simplifier
+       can FACTOR the common constant (`a·w + b·w → (a+b)·w`), one
+       rounding where CPU does three. Blur never hits this because its
+       tap weights are all distinct.
+    2. the two-multiply chain `strength·(w·occ)` diffed — the simplifier
+       can REASSOCIATE scalar multipliers into one plane multiply
+       (`s·(w·occ) → (s·w)·occ`).
 
     The fix makes both rewrites the DEFINITION: sum the occlusions first
     (exact f32 adds in fixed order — nothing to factor), fold the shared
     weight into the strength SCALAR (one scalar·scalar rounding, identical
     on every backend), then ONE plane multiply (nc_mul: anti-FMA on CPU).
-    Chip-verified 0/36503 diffs (probe `v_scalarfold`; battery row
-    `ambient_occlusion` re-proves it per run)."""
+    The parity battery's `ambient_occlusion` row re-proves it per run."""
     import jax.numpy as jnp
 
     from .exact_math import nc_mul
@@ -140,10 +140,9 @@ def ao_plane(plane, strength, radius: float, pallas_ok: bool = True,
         # bf16 pipeline (DESIGN.md §9): compute in f32, fresh per consumer
         plane = plane.astype(jnp.float32)
     # NOTE: the three blurs share one operand and fuse freely with the
-    # combine — chip probes confirmed every blur output stays bit-equal to
-    # the standalone kernel in this composition (0/36503 at all three
-    # sigmas); the two rewrites that DID drift lived in the combine (see
-    # ao_combine's docstring for the measured hazards and the fix).
+    # combine — every blur output stays bit-equal to the standalone kernel
+    # in this composition; the two rewrites that DID drift lived in the
+    # combine (see ao_combine's docstring for the hazards and the fix).
     blurred = [
         blur_plane(plane, s, pallas_ok=pallas_ok, mesh=mesh,
                    mesh_axis=mesh_axis)

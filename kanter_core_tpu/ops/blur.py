@@ -1,28 +1,24 @@
 """Blur node: separable Gaussian with toroidal wrap (extension).
 
 No reference counterpart — the reference's 13 node types have no blur, yet
-it is the most-requested texture op; this is a TPU-native addition. Design
-follows the engine's conventions:
+it is the most-requested texture op. Design follows the engine's
+conventions:
 
 - toroidal wrap addressing like HeightToNormal (`height_to_normal.rs:55-56`
   uses the same Sampling trait), so tileable textures stay tileable;
 - separable vertical-then-horizontal passes like the resampler;
 - tap products through `exact_math.nc_mul` and sequential tap-order sums, so
-  output planes are f32-bit deterministic across CPU/TPU (same discipline as
-  `ops/resize.py`);
+  output planes are f32-bit deterministic across CPU and GPU (same
+  discipline as `ops/resize.py`);
 - weights computed host-side in f32 (radius = ceil(3σ), normalized), baked
   into the trace as constants — sigma is part of the program fingerprint.
 
 Gray in → gray out; RGBA in → all four planes blurred.
 
-Lowering: on TPU (lane-aligned widths) the traceable kernel dispatches to
-the double-buffered Pallas kernel in `ops/pallas_blur.py` — measured on
-the real chip (amortized distinct-checksum protocol) XLA will not fuse the
-many-tap shifted-read sum and materializes copies: XLA 2.99 ms vs Pallas
-0.33 ms at σ=1 @ 4096² (824 GB/s, at the measured roofline) and
-15.3 ms vs 1.40 ms at σ=5 — 9-11× — while staying bit-identical
-(chip-verified; `scripts/tpu_parity.py` blur determinism row). Elsewhere
-(CPU, unaligned widths) the jnp rolled-read form below runs as is.
+Lowering: on the GPU the traceable kernel dispatches to the Pallas-Triton
+kernel in `ops/blur_triton.py` (one read and one write per pass, no
+transposes; bit-identical — its times against this module's `jnp` form
+are in PERF.md). Elsewhere the `jnp` rolled-read form below runs as is.
 """
 
 from __future__ import annotations
@@ -68,25 +64,24 @@ def _blur_axis0(plane, taps: np.ndarray):
     return acc
 
 
-#: test hook: force the Pallas lowerings (interpret mode) off-TPU so the
-#: CPU suite exercises the kernel paths the chip runs
+#: test hook: run the kernel lowering off the GPU (Pallas interpret mode)
+#: so the CPU suite exercises the dispatch the GPU takes
 FORCE_PALLAS_INTERPRET = False
 
 
 def blur_plane(plane, sigma: float, pallas_ok: bool = True, mesh=None,
                mesh_axis=None):
     """Traceable separable wrap blur of one `[H, W]` plane (see module
-    docstring for the TPU Pallas dispatch; all lowerings are bit-equal).
+    docstring for the GPU kernel dispatch; all lowerings are bit-equal).
 
     `mesh` (a `jax.sharding.Mesh`) selects the shard_map'd kernel: the plane
-    is row-sharded over the mesh's first axis, each shard runs the Mosaic
-    kernel on its block after a ring `ppermute` halo exchange
-    (`pallas_blur._blur_pallas_sharded`). GSPMD cannot partition a plain
-    Mosaic custom call, so mesh programs previously had to trace the jnp
-    form (`pallas_ok=False`) and lost the kernel's 7-10× win.
+    is row-sharded over the mesh's first axis (or `mesh_axis`), and each
+    shard runs the kernel on its block after a ring `ppermute` halo exchange
+    (`blur_triton.blur_kernel_sharded`). GSPMD cannot partition a Pallas
+    custom call, so the kernel needs that explicit form under a mesh.
 
-    `pallas_ok=False` still forces the jnp lowering — the gate for contexts
-    neither kernel supports (vmapped mesh programs, unviable geometries).
+    `pallas_ok=False` forces the jnp lowering — the gate for contexts no
+    kernel form serves (vmapped mesh programs, GSPMD-sharded tiled bands).
     """
     import jax
     import jax.numpy as jnp
@@ -94,26 +89,23 @@ def blur_plane(plane, sigma: float, pallas_ok: bool = True, mesh=None,
     if plane.dtype != jnp.float32:
         # bf16 pipeline (DESIGN.md §9: bf16 at rest, f32 in flight): the
         # compiler upcasts compute inputs before this point; a direct
-        # caller's half-precision plane upcasts here so the Mosaic f32
-        # kernels stay viable and the f32 bits match the default pipeline
+        # caller's half-precision plane upcasts here so the f32 bits match
+        # the default pipeline
         plane = plane.astype(jnp.float32)
 
     taps = gaussian_taps(round(float(sigma), 6))
-    on_tpu = jax.default_backend() == "tpu" or FORCE_PALLAS_INTERPRET
-    taps_tuple = tuple(float(w) for w in taps)
-    if pallas_ok and on_tpu and mesh is not None:
-        from .pallas_blur import _blur_pallas_sharded, fits_sharded
+    interpret = jax.default_backend() != "gpu"
+    if pallas_ok and (not interpret or FORCE_PALLAS_INTERPRET):
+        from . import blur_triton
 
+        taps_tuple = tuple(float(w) for w in taps)
+        if mesh is None:
+            return blur_triton.blur_kernel(taps_tuple, interpret)(plane)
         axis = mesh_axis or mesh.axis_names[0]
-        n = int(mesh.shape[axis])
-        if fits_sharded(plane.shape[0], plane.shape[1], len(taps), n):
-            interpret = jax.default_backend() != "tpu"
-            return _blur_pallas_sharded(taps_tuple, mesh, interpret, axis)(plane)
-    if pallas_ok and mesh is None and on_tpu and plane.shape[1] % 128 == 0:
-        from .pallas_blur import _blur_pallas_wrapped, fits_kernel
-
-        if fits_kernel(plane.shape[1], len(taps)):
-            return _blur_pallas_wrapped(taps_tuple)(plane)
+        if blur_triton.fits_sharded(plane.shape[0], len(taps), int(mesh.shape[axis])):
+            return blur_triton.blur_kernel_sharded(
+                taps_tuple, mesh, axis, interpret
+            )(plane)
     from jax import lax
 
     # barrier the operand: without it XLA:CPU duplicates the producer

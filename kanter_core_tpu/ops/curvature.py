@@ -21,7 +21,7 @@ Design follows the engine's conventions:
   rounded ops, never reassociated by XLA) and one `nc_mul`-guarded product
   feeding the final add (CLAUDE.md rule: XLA:CPU's LLVM would contract
   `strength*lap + 0.5` into a one-rounding FMA) — so f32 planes are
-  bit-identical across backends by construction (chip battery row
+  bit-identical across backends by construction (the parity battery row
   `curvature` re-proves it per formulation, per CLAUDE.md's
   formulation-context caveat);
 - banded/bucketed twins pre-gather the wrapped ±1 rows (and, bucketed,
@@ -36,12 +36,10 @@ Design follows the engine's conventions:
   halves the raw response, which the strength dial absorbs — documented
   rather than hidden behind a resolution heuristic.
 
-Lowering note: like HeightToNormal, `jnp.roll` + XLA fusion IS the
-TPU-native design — XLA:TPU fuses few-operand stencils into one streaming
-pass (CLAUDE.md: "h2n's 2 rolls → one streaming pass"); this op is 4 rolls
-of one operand feeding an elementwise chain, the same class. No Pallas
-kernel is warranted (two of three hand kernels lost to XLA here,
-DESIGN.md §5).
+Lowering note: like HeightToNormal, `jnp.roll` + XLA fusion is the
+design — XLA fuses few-operand stencils into one streaming pass; this op is
+4 rolls of one operand feeding an elementwise chain, the same class. No
+Pallas kernel is warranted.
 """
 
 from __future__ import annotations

@@ -14,13 +14,14 @@ tileable masks yield tileable fields), and the output is the fade
 mask produces all-zero output (the sentinel distance saturates the fade).
 
 Algorithm — Jump Flooding (JFA), the GPU-classic O(N log N) nearest-seed
-propagation and the TPU-natural choice: ceil(log2(max(H, W)))+1
+propagation: ceil(log2(max(H, W)))+1
 step-batched passes, each folding eight rolls of ONE packed i32
 nearest-seed plane through a fixed-order select chain. Every pass is
 data-independent elementwise compare+select over rolled copies — no
 data-dependent control flow, and the pass count is static in the trace
 (Python loop: shapes are static per program, matching the engine's
-size-keyed fingerprints). Chip-measured perf history: DESIGN.md §10.
+size-keyed fingerprints). XLA fuses each step's eight rolls and select
+chain into one loop fusion; per-step time at 4096² is in PERF.md.
 
 Determinism design (CLAUDE.md discipline):
 
@@ -35,11 +36,11 @@ Determinism design (CLAUDE.md discipline):
   which is the engine contract; the approximation error is bounded and
   rare (<0.3% of pixels off by a small factor in the literature), and the
   fuzz/battery rows assert bit parity, not Euclidean optimality;
-- the only f32 ops are the final `sqrt` (corrected_sqrt off-CPU — TPU's
-  rsqrt-based sqrt is ~1 ulp loose), the division by the runtime
-  `max_dist` argument (corrected_div off-CPU; never a constant divisor —
-  XLA:CPU rewrites those, CLAUDE.md), the subtract, and the clip — all
-  single correctly rounded ops given identical inputs;
+- the only f32 ops are the final `sqrt` (`exact_sqrt`: the GPU's sqrt is
+  ~1 ulp loose), the division by the runtime `max_dist` argument
+  (`exact_div`; never a constant divisor — XLA rewrites those, CLAUDE.md),
+  the subtract, and the clip — all single correctly rounded ops given
+  identical inputs;
 - i32→f32 conversion of the squared distance is correctly rounded on
   every backend (values ≤ (W/2)²+(H/2)² stay well inside i32).
 
@@ -90,21 +91,13 @@ def _jfa_steps(h: int, w: int) -> list:
     return steps + [1]
 
 
-def distance_plane(mask, max_dist, pallas_ok: bool = True):
+def distance_plane(mask, max_dist):
     """Traceable normalized-distance fade of one `[H, W]` gray plane;
     `max_dist` is a traced f32 scalar (pixels). See module docstring.
-
-    `pallas_ok=False` forces the jnp roll ladder — the gate for contexts
-    the Mosaic step kernel cannot serve (mesh programs: GSPMD cannot
-    partition a custom call, and the jnp rolls lower to collective
-    permutes there; the band twin passes False too — capacity is
-    correctness-first). On TPU with a viable geometry the propagation
-    runs through `pallas_distance.jfa_propagate_pallas` (bit-identical
-    by integer exactness; chip-measured numbers in DESIGN.md §10)."""
-    import jax
+    Under a mesh the rolls lower to collective permutes."""
     import jax.numpy as jnp
 
-    from .exact_math import corrected_div, corrected_sqrt
+    from .exact_math import exact_div, exact_sqrt
 
     from jax import lax
 
@@ -123,14 +116,12 @@ def distance_plane(mask, max_dist, pallas_ok: bool = True):
     seed = mask > jnp.float32(0.5)
     far = jnp.int32(_FAR)
 
-    # PACKED single-plane state (r4 perf rework — chip numbers in
-    # DESIGN.md §10): the nearest-seed coordinate rides as y<<16 | x in ONE
-    # i32 plane instead of (best_y, best_x, best_d2) three. The JFA
-    # roll→select chain is the HBM-materialization class (CLAUDE.md), so
-    # state bytes ARE the wall clock — packing cut 149.7 → 42.9 ms at
-    # 4096² on chip, bit-identical by integer exactness — and the d²
+    # PACKED single-plane state: the nearest-seed coordinate rides as
+    # y<<16 | x in ONE i32 plane instead of (best_y, best_x, best_d2)
+    # three, so each step moves a third of the bytes (bit-identical by
+    # integer exactness), and the d²
     # values are recomputed from the packed coords inside the fused pass
-    # (pure i32 VPU ops, exact on every backend; d² is a function of the
+    # (pure i32 ops, exact on every backend; d² is a function of the
     # stored coords, so recompute == carry). Coords are in-range by
     # construction (rolls permute
     # positions; values never leave [0,h)×[0,w)), the pack is lossless for
@@ -175,60 +166,41 @@ def distance_plane(mask, max_dist, pallas_ok: bool = True):
     # STEP-BATCHED update (textbook JFA): all eight candidates of a step
     # are rolls of the STEP-START state, folded through a fixed-order
     # strict-< select chain; the state writes once per STEP, not once per
-    # offset. The r4 sequential-propagation variant (each offset rolling
-    # the just-updated state) forced a materialization per OFFSET and
-    # chip-measured 42.9 ms at 4096² vs 26.9 ms for this form (1.6×);
-    # both variants measured EXACT vs the f64 brute-force toroidal EDT on
+    # offset (a sequential-propagation variant, each offset rolling the
+    # just-updated state, forced a materialization per OFFSET). Both
+    # variants measured EXACT vs the f64 brute-force toroidal EDT on
     # random masks at two seed densities (the JFA+1 ladder removes the
-    # textbook misses), and they differ from each other on only ~2e-6 of
-    # pixels at 4096² — DESIGN.md §10.
-    steps = _jfa_steps(h, w)
-    from . import pallas_distance
+    # textbook misses).
+    for k in _jfa_steps(h, w):
+        best = packed
+        best_d2 = d2_of(packed)
+        for oy in (-k, 0, k):
+            for ox in (-k, 0, k):
+                if oy == 0 and ox == 0:
+                    continue
+                # toroidal roll; degenerate/oversized axes wrap self
+                cand = packed
+                if h > 1 and oy % h != 0:
+                    cand = jnp.roll(cand, oy, axis=0)
+                if w > 1 and ox % w != 0:
+                    cand = jnp.roll(cand, ox, axis=1)
+                d2 = d2_of(cand)
+                better = d2 < best_d2  # strict: first-seen wins ties
+                best = jnp.where(better, cand, best)
+                best_d2 = jnp.where(better, d2, best_d2)
+        packed = best
 
-    on_tpu = (
-        jax.default_backend() == "tpu"
-        or pallas_distance.FORCE_PALLAS_INTERPRET
-    )
-    if pallas_ok and on_tpu and pallas_distance.fits_kernel(h, w):
-        # the Mosaic step kernel streams the state (3r+1w per far step)
-        # instead of materializing 8 rolled copies — bit-identical fold;
-        # chip numbers in DESIGN.md §10
-        packed = pallas_distance.jfa_propagate_pallas(
-            packed, steps, interpret=jax.default_backend() != "tpu"
-        )
-    else:
-        for k in steps:
-            best = packed
-            best_d2 = d2_of(packed)
-            for oy in (-k, 0, k):
-                for ox in (-k, 0, k):
-                    if oy == 0 and ox == 0:
-                        continue
-                    # toroidal roll; degenerate/oversized axes wrap self
-                    cand = packed
-                    if h > 1 and oy % h != 0:
-                        cand = jnp.roll(cand, oy, axis=0)
-                    if w > 1 and ox % w != 0:
-                        cand = jnp.roll(cand, ox, axis=1)
-                    d2 = d2_of(cand)
-                    better = d2 < best_d2  # strict: first-seen wins ties
-                    best = jnp.where(better, cand, best)
-                    best_d2 = jnp.where(better, d2, best_d2)
-            packed = best
-
-    dist = corrected_sqrt(d2_of(packed).astype(jnp.float32))
+    dist = exact_sqrt(d2_of(packed).astype(jnp.float32))
     one = jnp.float32(1.0)
-    fade = one - corrected_div(dist, jnp.maximum(max_dist, jnp.float32(1e-6)))
+    fade = one - exact_div(dist, jnp.maximum(max_dist, jnp.float32(1e-6)))
     return jnp.clip(fade, 0.0, 1.0)
 
 
 @functools.cache
-def _kernel(pallas_ok: bool = True):
+def _kernel():
     import jax
 
-    return jax.jit(
-        lambda max_dist, p: distance_plane(p, max_dist, pallas_ok=pallas_ok)
-    )
+    return jax.jit(lambda max_dist, p: distance_plane(p, max_dist))
 
 
 def process(slot_datas, node, mesh=None):
@@ -238,9 +210,8 @@ def process(slot_datas, node, mesh=None):
     if slot_data.image.is_rgba():
         return []  # gray only: a distance field of an RGBA image is ill-defined
     max_dist = np.float32(node.node_type.payload)
-    # mesh: inputs arrive GSPMD-row-sharded (`ops._shard_inputs`) and a
-    # Mosaic call cannot be partitioned — keep the jnp ladder there
-    out = _kernel(pallas_ok=mesh is None)(
+    # mesh: inputs arrive GSPMD-row-sharded (`ops._shard_inputs`)
+    out = _kernel()(
         max_dist, slot_data.image.planes[0].data()
     )
     return [SlotData(node.node_id, SlotId(0), SlotImage([plane_from_device(out)]))]

@@ -1,28 +1,25 @@
-"""Correctly-rounded f32 transcendentals for backends with approximate ops.
+"""Correctly-rounded f32 arithmetic on backends whose hardware ops are not.
 
 The reference's pixel math is Rust f32 linked against glibc (`mix.rs:136-192`
-does plain `/` and `powf`). XLA CPU matches glibc bit-for-bit (verified over
-the full u8-decoded grid — see DESIGN.md §7), but TPU hardware
-computes divide as reciprocal-multiply (~1 ulp) and pow via its own exp/log
-(~1-2 ulp). This module recovers reference-grade rounding ON DEVICE with
-double-single arithmetic: every intermediate is an unevaluated pair of f32s
-(~49 significant bits), built from plain add/mul — no FMA, no f64 (TPUs have
-neither for f32 pipelines), no host callbacks, fully fusable and vmappable.
+does plain `/` and `powf`). XLA:CPU matches glibc bit-for-bit (verified over
+the full u8-decoded grid — see DESIGN.md §7). XLA:GPU does not: its f32
+divide is up to 2 ulp off, its sqrt up to 1 ulp, and its pow (libdevice)
+up to 1 ulp from glibc's powf. This module recovers reference-grade rounding
+ON DEVICE with double-single arithmetic: every intermediate is an
+unevaluated pair of f32s (~49 significant bits), built from plain add/mul —
+no FMA, no f64, no host callbacks, fully fusable and vmappable.
 
-Measured on a real v5e chip over all 65536 u8-decoded input pairs:
-- `corrected_div` (used by ops.mix): 0 f32-bit mismatches vs glibc;
-- `ds_pow`: 48 f32-bit mismatches vs glibc — every one a case where glibc's
-  powf (max error ~0.82 ulp) itself misrounds while ds_pow returns the
-  correctly-rounded value; after u8 export quantization the two agree on
-  ALL 65536 pairs, so golden outputs are byte-identical.
-
-Cost on a real v5e at 4096²: corrected div/sqrt fuse for free into
-bandwidth-bound elementwise chains; `ds_pow` measures 0.24 ms vs 0.16 ms
-for the ~1-ulp hardware pow — 1.5× on the one op where exactness actually
-costs arithmetic, still far from compute-bound.
-
-Caveat: TPU flushes denormals, so pow results below ~1.2e-38 become 0
-instead of denormal (irrelevant for texture data in [0, 1]).
+Which backend needs which correction is one table, `numerics()`, keyed by
+the platform and read at trace time; the ops ask it for a property, never
+for a backend name. Measured on an H100 (NVIDIA H100 80GB HBM3, 400 W limit)
+over 2²⁰ random and all 65536 u8-decoded input pairs:
+- `corrected_div`, `corrected_sqrt`: 0 f32-bit mismatches vs IEEE;
+- `ds_pow`: bit-identical to XLA:CPU's `ds_pow`, and 48 f32-bit mismatches
+  vs glibc on the u8 grid — every one a case where glibc's powf (max error
+  ~0.82 ulp) itself misrounds while ds_pow returns the correctly-rounded
+  value; after u8 export quantization the two agree on ALL 65536 pairs;
+- XLA:GPU and Pallas-Triton kernels keep `a*b + c` two-rounded (0 of
+  246,559 FMA-sensitive triples contracted), so `nc_mul` needs no guard there.
 
 Non-f32 dtypes (the opt-in bf16 pipeline, DESIGN.md §9): the machinery is
 pointless below f32 precision — a bf16 result rounds away any sub-ulp-of-f32
@@ -34,6 +31,7 @@ documented as non-bit-exact).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -45,6 +43,70 @@ def _const_ds(value) -> tuple:
     hi = np.float32(v)
     lo = np.float32(v - np.float64(hi))
     return float(hi), float(lo)
+
+
+@dataclasses.dataclass(frozen=True)
+class Numerics:
+    """What a backend's compiled f32 arithmetic does, as the ops need it."""
+
+    #: XLA fuses an f32 multiply feeding an add into one FMA (one rounding)
+    fma_contracts: bool
+    #: plain f32 `/` with a runtime divisor is correctly rounded (IEEE)
+    div_correctly_rounded: bool
+    #: plain f32 `sqrt` is correctly rounded (IEEE)
+    sqrt_correctly_rounded: bool
+    #: plain f32 `pow` equals glibc's `powf` bit for bit
+    pow_is_glibc: bool
+
+
+#: one row per platform; the GPU row is measured on an H100 by
+#: `kanter_core_tpu.parity.probe_numerics` (run by `chip_smoke.py`)
+NUMERICS = {
+    "cpu": Numerics(fma_contracts=True, div_correctly_rounded=True,
+                    sqrt_correctly_rounded=True, pow_is_glibc=True),
+    "gpu": Numerics(fma_contracts=False, div_correctly_rounded=False,
+                    sqrt_correctly_rounded=False, pow_is_glibc=False),
+}
+
+
+def numerics(platform: str | None = None) -> Numerics:
+    """The `Numerics` row of `platform` (default: JAX's default backend,
+    read at trace time). A platform without a measured row is an error."""
+    if platform is None:
+        import jax
+
+        platform = jax.default_backend()
+    try:
+        return NUMERICS[platform]
+    except KeyError:
+        raise ValueError(
+            f"no numerics row for platform {platform!r}; measure one with "
+            "kanter_core_tpu.parity.probe_numerics"
+        ) from None
+
+
+def exact_div(a, b):
+    """f32 division rounded like glibc: the plain op where the backend's is
+    correctly rounded, `corrected_div` elsewhere. For RUNTIME divisors only:
+    XLA rewrites division by a compile-time constant into a reciprocal
+    multiply, so constant divisors need an `optimization_barrier` too."""
+    return a / b if numerics().div_correctly_rounded else corrected_div(a, b)
+
+
+def exact_sqrt(x):
+    """f32 sqrt rounded like glibc (see `exact_div`)."""
+    import jax.numpy as jnp
+
+    return jnp.sqrt(x) if numerics().sqrt_correctly_rounded else corrected_sqrt(x)
+
+
+def exact_pow(a, b):
+    """f32 pow as glibc's powf where the backend's is glibc's, else the
+    correctly-rounded `ds_pow` (which differs from glibc only where glibc
+    misrounds; u8 export absorbs every such case)."""
+    import jax.numpy as jnp
+
+    return jnp.power(a, b) if numerics().pow_is_glibc else ds_pow(a, b)
 
 
 def _exactness_applies(*operands) -> bool:
@@ -107,7 +169,7 @@ def corrected_div(a, b):
     q0 = a/b, then q0 + (a − q0·b)/b where the residual is EXACT via
     Veltkamp splitting. Non-finite q0 (x/0, 0/0) passes through untouched to
     keep IEEE inf/NaN encoding. Verified 0/65536 grid and 0/1e6 wide-range
-    mismatches vs glibc on both CPU and a real TPU chip.
+    mismatches vs glibc on both XLA:CPU and an H100.
     """
     import jax.numpy as jnp
 
@@ -137,8 +199,7 @@ def nc_mul(x, y):
     """Non-contractible f32 multiply: exactly fl(x·y), immune to FMA fusion.
 
     XLA:CPU (via LLVM) contracts `a*b + c` into fma(a, b, c) — ONE rounding,
-    where the reference's Rust (no fast-math) and numpy do TWO. TPU does not
-    contract, so plain mul+add already matches the reference there. This
+    where the reference's Rust (no fast-math) and numpy do TWO. This
     helper forces the separately-rounded product everywhere: the product
     additionally feeds a Dekker error term and returns `p + (err − err)`.
     Strict FP semantics protect the construction — a compiler may fold
@@ -147,20 +208,15 @@ def nc_mul(x, y):
     contraction pattern never matches. Verified 0/1e6 mismatches vs numpy's
     two-rounding `a*b + c` on XLA:CPU.
 
-    On TPU the guard is UNNECESSARY (Mosaic/XLA:TPU never contract f32
-    mul+add) and the Veltkamp split costs ~14 VPU flops per element — it
-    made the tap-heavy kernels (blur, h2n remap) compute-bound on chip. The
-    trace-time backend gate (the same pattern as `_h2n_core`/`_apply_axis0`)
-    emits the plain mul there; chip parity (`scripts/tpu_parity.py` blur +
-    h2n determinism rows, 16/16 goldens) verifies bit-equality.
+    Where XLA does not contract (`numerics().fma_contracts` is False, as on
+    the GPU) the guard is unnecessary and costs ~14 flops per product, so the
+    plain multiply is emitted; the device parity battery
+    (`kanter_core_tpu.parity`) pins the two forms bit-equal across backends.
     """
-    import jax
     import jax.numpy as jnp
 
-    if not _exactness_applies(x, y):
+    if not _exactness_applies(x, y) or not numerics().fma_contracts:
         return x * y
-    if jax.default_backend() == "tpu":
-        return x * y  # already fl(x·y); TPU does not contract into the add
 
     f32 = jnp.float32
     p = x * y
@@ -178,13 +234,13 @@ def nc_mul(x, y):
     # Sanitize it; the select's runtime condition keeps the compiler from
     # folding err − err statically, so the anti-FMA construction stands.
     # (Known quirk, pre-existing: a −0.0 product returns +0.0 here — the
-    # fadd with +0.0 — while TPU/Rust keep −0.0; u8 export masks it.)
+    # fadd with +0.0 — while Rust keeps −0.0; u8 export masks it.)
     err = jnp.where(jnp.isfinite(err), err, f32(0.0))
     return p + (err - err)
 
 
 def corrected_sqrt(x):
-    """Correctly-rounded f32 sqrt (TPU hardware sqrt is ~1 ulp off on ~40%
+    """Correctly-rounded f32 sqrt (GPU hardware sqrt is ~1 ulp off on ~17%
     of inputs). One Newton refinement with the EXACT residual x − s0² via
     Veltkamp splitting: s = s0 + (x − s0²)/(2·s0). Correct rounding follows
     because √x is never exactly at an f32 rounding midpoint (a classical
@@ -203,7 +259,23 @@ def corrected_sqrt(x):
     prod = s0 * s0
     err = ((sh * sh - prod) + sh * sl + sl * sh) + sl * sl
     r = (x - prod) - err
-    s = s0 + r / (s0 + s0)
+    corr = r / (s0 + s0)
+    s = s0 + corr
+    # near-midpoint roots (x = 1 − 2⁻²⁴, x = 4ᵏ·(1 − 2⁻²⁴), …): corr can
+    # round so that s0 + corr lands exactly on a midpoint, and the add then
+    # ties to even whichever side √x is on. Decide such ties exactly: e is
+    # the add's exact error (m = s + e is the midpoint), and
+    # x − m² = (x − s²) − 2·s·e − e², whose first two terms are exact here.
+    bb = s - s0
+    e = (s0 - (s - bb)) + (corr - bb)
+    gap = jnp.nextafter(s, jnp.where(e > 0, jnp.inf, -jnp.inf).astype(s.dtype)) - s
+    th_t = jnp.float32(4097.0) * s
+    th = th_t - (th_t - s)
+    tl = s - th
+    ps = s * s
+    q = ((x - ps) - (((th * th - ps) + th * tl + tl * th) + tl * tl)) - (s + s) * e
+    beyond = jnp.where(e > 0, q > e * e, q < e * e)
+    s = jnp.where((e != 0) & (e + e == gap) & beyond, s + gap, s)
     return jnp.where(jnp.isfinite(s0) & (s0 > 0), s, s0)
 
 

@@ -20,10 +20,9 @@ conventions:
   last → the last segment at t = 1 (which is `c_{N−2} + (c_{N−1} − c_{N−2})`,
   the f32 lerp endpoint — may differ from `c_{N−1}` by 1 ulp, as in any
   lerp formulation);
-- the division routes through `corrected_div` off-CPU (runtime divisor)
-  and the lerp product through `nc_mul` (CLAUDE.md contraction rule), so
-  f32 planes are bit-identical across backends (chip battery row
-  `gradient_map`);
+- the division routes through `exact_div` (runtime divisor) and the lerp
+  product through `nc_mul` (CLAUDE.md contraction rule), so f32 planes
+  are bit-identical across backends (parity battery row `gradient_map`);
 - degenerate stops (p_{k+1} == p_k): IEEE propagation — the divide yields
   ±inf (clip resolves to 1/0) or NaN (propagates), deterministically.
   NaN input pixels select no segment (all compares false) and resolve to
@@ -61,16 +60,12 @@ def gradient_bindings(payload) -> dict:
 def gradient_planes(plane, pos, colors):
     """Traceable gradient map of one gray `[H, W]` plane → 4 RGBA planes.
     `pos` f32[N] ascending stop positions, `colors` f32[4, N]."""
-    import jax
     import jax.numpy as jnp
 
     if plane.dtype != jnp.float32:
         # bf16 pipeline (DESIGN.md §9): compute in f32, fresh per consumer
         plane = plane.astype(jnp.float32)
-    if jax.default_backend() == "cpu":
-        _div = lambda a, b: a / b  # noqa: E731 — runtime divisor: true IEEE
-    else:
-        from .exact_math import corrected_div as _div
+    from .exact_math import exact_div as _div  # runtime divisors only
 
     n = pos.shape[0]
     outs = []

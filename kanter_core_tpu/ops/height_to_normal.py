@@ -10,23 +10,14 @@ The reference's per-pixel scalar loop (its only cancellation-aware kernel)
 becomes a fused stencil; cancellation here happens at dispatch granularity
 instead of per pixel. Operation order matches nalgebra's
 `norm = sqrt((x² + y²) + z²)` and componentwise divide. On CPU plain
-sqrt/div are correctly rounded already; TPU hardware is ~1 ulp off on both,
-so the normalizations go through `ops/exact_math.corrected_{sqrt,div}` —
+sqrt/div are correctly rounded already; the GPU's are up to 1-2 ulp off, so
+there the normalizations go through `ops/exact_math.exact_{sqrt,div}` —
 making the f32 planes (not just the u8 export) bit-identical across
 backends.
 
-Lowering note: a hand-written Pallas one-pass stencil used to live in
-`ops/pallas_kernels.py`. Measured honestly on the real chip (amortized
-lax.scan protocol, roll-varied inputs, distinct checksums — bench_ops.py),
-XLA's lowering of the jnp formulation beat it decisively: 0.071 ms vs
-0.978 ms at 2048² (14×) and 2.46 ms vs 5.61 ms at 4096² (2.3×). XLA fuses
-the wrap `roll`s into the elementwise chain without materializing copies
-and pipelines HBM traffic, while the manual per-tile DMA serialized
-transfer against compute (and VMEM-OOMed at 4096-wide tiles). The op is
-compute-bound in the double-single corrected math at 4k, so no data-movement
-kernel can improve it further. The Pallas kernel was deleted rather than
-kept as a slower alternate path; `jnp.roll` + XLA fusion IS the TPU-native
-design here.
+Lowering note: XLA fuses the wrap `roll`s into the elementwise chain
+without materializing copies, so `jnp.roll` + XLA fusion is the design
+here; no hand-written stencil kernel is kept.
 """
 
 from __future__ import annotations
@@ -65,19 +56,14 @@ def _h2n_core(h, up, height: int, width: int, left=None, pdx=None, pdy=None):
     pre-gathers the x−1 wrap column (`left`, since a roll on a padded-width
     plane would wrap into the pad) and passes HOST-computed f32 texel steps
     (`pdx`/`pdy` as traced scalars — computing 1/width on device would hit
-    TPU's ~1 ulp division); both default to the formulations above, so the
+    the GPU's loose division); both default to the formulations above, so the
     non-bucketed paths are unchanged.
     """
-    import jax
     import jax.numpy as jnp
 
     from .exact_math import nc_mul
 
-    if jax.default_backend() == "cpu":
-        _div = lambda a, b: a / b  # noqa: E731 — already correctly rounded
-        _sqrt = jnp.sqrt
-    else:
-        from .exact_math import corrected_div as _div, corrected_sqrt as _sqrt
+    from .exact_math import exact_div as _div, exact_sqrt as _sqrt
 
     if pdx is None:
         pdx = jnp.float32(1.0) / jnp.float32(width)
@@ -123,9 +109,7 @@ def _h2n_core(h, up, height: int, width: int, left=None, pdx=None, pdy=None):
 
 def h2n_traceable(h):
     """The traceable kernel used by both the eager op and the fused
-    compiler. One lowering for every backend (see module docstring: XLA's
-    fusion of this formulation measured faster than a hand-written Pallas
-    stencil on the real chip)."""
+    compiler. One lowering for every backend (see module docstring)."""
     return _h2n_jnp(h)
 
 

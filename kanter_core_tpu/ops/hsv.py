@@ -69,7 +69,6 @@ def hsv_planes(planes, params):
     """Traceable adjust of a 1- or 4-plane pixel stack; `params` is the
     traced f32[3] vector from `hsv_bindings`. Returns the same number of
     planes; alpha (plane 3) is passed through by reference."""
-    import jax
     import jax.numpy as jnp
 
     f32 = jnp.float32
@@ -79,10 +78,7 @@ def hsv_planes(planes, params):
         # gray: saturation 0, no hue — exactly the value scale
         return [jnp.clip(_f32(planes[0]) * val, 0.0, 1.0)]
 
-    if jax.default_backend() == "cpu":
-        _div = lambda a, b: a / b  # noqa: E731 — runtime divisor: true IEEE
-    else:
-        from .exact_math import corrected_div as _div
+    from .exact_math import exact_div as _div  # runtime divisors only
 
     r, g, b = _f32(planes[0]), _f32(planes[1]), _f32(planes[2])
     maxc = jnp.maximum(r, jnp.maximum(g, b))

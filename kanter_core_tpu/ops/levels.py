@@ -19,10 +19,10 @@ Design follows the engine's conventions:
 - degenerate span (in_hi == in_lo): IEEE propagation — the divide yields
   ±inf (clip resolves to 1/0) or NaN (propagates), deterministically.
 
-Cost note (measured, bench_ops `levels` row): 12.9 ms at 4096² on chip —
-compute-bound by the correctly-rounded `ds_pow` (~1.3 Gpix/s), the same
-class as Mix POW. That is the deliberate price of cross-backend f32-bit
-determinism (recipe-cache safety); hardware pow would be ~1 ulp loose.
+Cost note: on the GPU the op is compute-bound by the correctly-rounded
+`ds_pow` (bench_ops `levels` row), the same class as Mix POW. That is the
+deliberate price of cross-backend f32-bit determinism (recipe-cache
+safety); hardware pow would be ~1 ulp loose.
 """
 
 from __future__ import annotations
@@ -42,28 +42,23 @@ from .exact_math import nc_mul
 def levels_plane(plane, params):
     """Traceable remap of one `[H, W]` plane; `params` is a traced f32[5]
     vector `(in_lo, in_hi, gamma, out_lo, out_hi)`."""
-    import jax
     import jax.numpy as jnp
 
     if plane.dtype != jnp.float32:
         # bf16 pipeline (DESIGN.md §9): compute in f32, fresh per consumer
         plane = plane.astype(jnp.float32)
-    if jax.default_backend() == "cpu":
-        _div = lambda a, b: a / b  # noqa: E731 — hardware IEEE
-        _pow = jnp.power  # == glibc powf bit-for-bit
-    else:
-        from .exact_math import corrected_div as _div, ds_pow as _pow
+    from .exact_math import exact_div as _div, exact_pow as _pow
 
     in_lo, in_hi, gamma = params[0], params[1], params[2]
     out_lo, out_hi = params[3], params[4]
     t = jnp.clip(_div(plane - in_lo, in_hi - in_lo), 0.0, 1.0)
-    # gamma == 1 fast path (r5): the pow IS the op's cost off-CPU
-    # (ds_pow's double-single exp/log — the 13.0 ms of the 4096² bench
-    # row vs a ~0.3 ms traffic floor), and identity gamma is the common
+    # gamma == 1 fast path: the pow IS the op's cost off-CPU (ds_pow's
+    # double-single exp/log, far above the traffic floor), and identity
+    # gamma is the common
     # slider-at-rest case. Bit-safe by the glibc contract: powf(x, 1.0)
     # is special-cased to x exactly, so the CPU golden path is unchanged
-    # bit-for-bit and the off-CPU cond matches CPU exactly (chip battery
-    # re-run post-change). `lax.cond` executes ONE branch per call (under
+    # bit-for-bit and the off-CPU cond matches CPU exactly (parity battery
+    # row `levels_identity_gamma`). `lax.cond` executes ONE branch per call (under
     # vmap it degrades to select — both branches — which only restores
     # the old cost); NaN gamma takes the pow path unchanged.
     from jax import lax

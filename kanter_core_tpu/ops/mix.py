@@ -30,7 +30,7 @@ from ..slot_data import SlotData
 from ..slot_image import SlotImage
 from ..transient_buffer import plane_from_device
 from .common import slot_data_with_name
-from .exact_math import corrected_div, ds_pow, nc_mul
+from .exact_math import corrected_div, exact_pow, nc_mul
 
 
 def _f32_operands(op):
@@ -55,21 +55,21 @@ def _binary(mix_type: MixType):
     import jax.numpy as jnp
 
     # Plain XLA f32 add/sub/mul are bit-identical to the reference's Rust f32
-    # math on every backend. Divide and pow are not on TPU (reciprocal-
-    # multiply / hardware exp-log, ~1 ulp): DIVIDE always goes through the
-    # Dekker-corrected division (bit-exact vs glibc on both CPU and a real
-    # chip, and provably identical to plain hardware division where that is
-    # already correctly rounded); POW uses the double-single expansion only
-    # off-CPU, because XLA CPU pow *is* glibc powf while ds_pow is the
-    # correctly-rounded value — they differ on the handful of inputs glibc
-    # misrounds. See ops/exact_math.py for the measurements.
+    # math on every backend. Divide and pow are not on the GPU (~1-2 ulp):
+    # DIVIDE always goes through the Dekker-corrected division (bit-exact vs
+    # glibc on both CPU and GPU, and provably identical to plain hardware
+    # division where that is already correctly rounded); POW goes through
+    # `exact_pow` — glibc's powf where XLA calls it (CPU), the
+    # correctly-rounded double-single expansion elsewhere; the two differ
+    # on the handful of inputs glibc misrounds. See ops/exact_math.py for
+    # the measurements.
     if mix_type == MixType.ADD:
         return _f32_operands(lambda l, r: l + r)
     if mix_type == MixType.SUBTRACT:
         return _f32_operands(lambda l, r: l - r)
     if mix_type == MixType.MULTIPLY:
         # nc_mul, not a bare `l * r`: value-identical everywhere (plain mul
-        # on TPU), but on XLA:CPU the Dekker guard stops LLVM from
+        # on the GPU), but on XLA:CPU the Dekker guard stops LLVM from
         # contracting the product into a consumer's add/sub as a
         # one-rounding FMA. Measured: with the product exposed to inlining
         # (the bucketed evaluator's gather-argument data movement),
@@ -81,22 +81,14 @@ def _binary(mix_type: MixType):
     if mix_type == MixType.DIVIDE:
         return _f32_operands(corrected_div)
     if mix_type == MixType.POW:
-
-        def _pow(l, r):
-            import jax
-
-            if jax.default_backend() == "cpu":
-                return jnp.power(l, r)  # == glibc powf bit-for-bit
-            return ds_pow(l, r)
-
-        return _f32_operands(_pow)
+        return _f32_operands(exact_pow)
     # --- extension blend modes (no reference counterpart; the classic
     # compositing formulas on straight channels). Every formulation is a
     # fixed association of exact two-rounding ops (min/max/abs/add/sub,
     # exact ×2) with nc_mul on every product — min/max/abs are bit-exact on
     # both backends and nc_mul blocks LLVM's FMA contraction on CPU (it
     # contracts even through a select — CLAUDE.md), so f32 planes stay
-    # bit-identical across CPU/TPU and all four lockstep consumers. NaN/inf
+    # bit-identical across CPU/GPU and all four lockstep consumers. NaN/inf
     # propagate IEEE-style (matching Mix DIVIDE's stance); note jnp.minimum/
     # maximum return NaN when either operand is NaN, and `NaN < 0.5` is
     # False so Overlay's select resolves to the high branch deterministically.

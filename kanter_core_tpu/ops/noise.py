@@ -3,12 +3,12 @@
 No reference counterpart — the reference's only procedural source is the
 1×1 Value constant (`/root/reference/src/node/value.rs:14-26`); every real
 texture authoring tool starts from a noise generator. Design follows the
-engine's conventions and the TPU's strengths:
+engine's conventions:
 
 - **Integer-lattice hashing**: each lattice corner's value comes from a
   32-bit integer mix (lowbias32-style avalanche) of `(x, y, seed)`.
   Integer multiply/xor/shift are EXACT on every XLA backend, so the
-  lattice values are bit-identical across CPU/TPU/interpret by
+  lattice values are bit-identical across CPU/GPU/interpret by
   construction — no exact-math machinery needed for the hash itself.
 - **Toroidal tiling**: lattice coordinates wrap modulo `cells·2^k` per
   octave, so the plane tiles seamlessly in both axes — matching the
@@ -29,15 +29,15 @@ engine's conventions and the TPU's strengths:
 - The float interpolation path (quintic smootherstep + lerps + octave
   accumulation) routes every product that feeds an add/sub through
   `nc_mul` (CLAUDE.md contraction rule) and the final normalization
-  through the backend-gated div, so f32 planes are bit-identical across
-  backends (chip battery row `noise_fbm`, `scripts/tpu_parity.py`).
+  through `exact_div`, so f32 planes are bit-identical across backends
+  (parity battery row `noise_fbm`, `kanter_core_tpu.parity`).
 
 Output: one Gray plane in [0, 1), height×width from the payload; consumers
 resize it per their resize policy like any other producer.
 
-Cost (measured, bench_ops `noise_fbm4` row, 4 octaves on chip): 0.037 ms at
-2048² / 0.35 ms at 4096² (48-114 Gpix/s) — ~1.7× a bare pointwise add, i.e.
-the 16 integer hashes + interp per pixel stay VPU-bound and cheap.
+Cost: the bench_ops `noise_fbm4` row (4 octaves) measures it; the 16
+integer hashes + interp per pixel are elementwise ALU work with one output
+write.
 """
 
 from __future__ import annotations
@@ -116,7 +116,6 @@ def noise_plane(rows, cols, seed, persistence, fx, fy, periods):
     lattice wrap periods. Per-pixel math depends only on the pixel's global
     coordinates and the arguments, so bands/pads/crops are bit-transparent.
     """
-    import jax
     import jax.numpy as jnp
 
     f32 = jnp.float32
@@ -125,10 +124,7 @@ def noise_plane(rows, cols, seed, persistence, fx, fy, periods):
     cy = rows.astype(jnp.float32) + f32(0.5)  # [nr]
     cx = cols.astype(jnp.float32) + f32(0.5)  # [nc]
 
-    if jax.default_backend() == "cpu":
-        _div = lambda a, b: a / b  # noqa: E731 — runtime divisor: true IEEE
-    else:
-        from .exact_math import corrected_div as _div
+    from .exact_math import exact_div as _div  # runtime divisors only
 
     seed = jnp.asarray(seed, jnp.uint32)
     persistence = jnp.asarray(persistence, jnp.float32)

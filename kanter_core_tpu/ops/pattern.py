@@ -35,9 +35,9 @@ Design rules shared with Noise (ops/noise.py — the sibling source node):
   bit-transparent by construction.
 - Float path: products feeding adds go through `nc_mul` (CLAUDE.md
   contraction rule); the one division (groove ramp, runtime divisor
-  `bevel`) routes through the backend-gated div, so f32 planes are
-  bit-identical across backends (chip battery row `pattern_kinds`,
-  `scripts/tpu_parity.py`).
+  `bevel`) routes through `exact_div`, so f32 planes are bit-identical
+  across backends (parity battery row `pattern_kinds`,
+  `kanter_core_tpu.parity`).
 """
 
 from __future__ import annotations
@@ -86,15 +86,11 @@ def pattern_planes(kind, rows, cols, fx, fy, px, py, mortar, bevel, seed):
     evaluator passes a band's absolute rows; the bucketed evaluator passes
     padded index vectors); everything else is a traced argument.
     """
-    import jax
     import jax.numpy as jnp
 
     f32 = jnp.float32
     i32 = jnp.int32
-    if jax.default_backend() == "cpu":
-        _div = lambda a, b: a / b  # noqa: E731 — runtime divisor: true IEEE
-    else:
-        from .exact_math import corrected_div as _div
+    from .exact_math import exact_div as _div  # runtime divisors only
 
     nr, nc = rows.shape[0], cols.shape[0]
     cy = rows.astype(f32) + f32(0.5)  # [nr] pixel centers

@@ -90,14 +90,10 @@ def ramp_plane(kind, rows, cols, iw, ih, k):
     evaluator passes a band's absolute rows; the bucketed evaluator
     passes padded index vectors); everything else is a traced argument.
     """
-    import jax
     import jax.numpy as jnp
 
     f32 = jnp.float32
-    if jax.default_backend() == "cpu":
-        _sqrt = jnp.sqrt  # XLA:CPU sqrt is hardware IEEE
-    else:
-        from .exact_math import corrected_sqrt as _sqrt
+    from .exact_math import exact_sqrt as _sqrt
 
     cos, sin, cx, cy, scale = k[0], k[1], k[2], k[3], k[4]
     u = nc_mul(cols.astype(f32) + f32(0.5), iw)  # [nc] in (0, 1)

@@ -202,8 +202,9 @@ def _apply_axis0(plane, lefts, weights, in_len: int):
     # The reference rounds `pixel * weight` and the accumulation separately;
     # XLA:CPU's LLVM backend sinks the zero-weight select and contracts the
     # mul+add into one-rounding FMAs (measured 4517/29100 f32-bit diffs vs
-    # the Rust-order numpy result at 173×211→300×97 triangle). TPU does not
-    # contract — keep its plain mul for speed on the hot path.
+    # the Rust-order numpy result at 173×211→300×97 triangle). `nc_mul` keeps
+    # the product separately rounded there and is a plain mul where XLA does
+    # not contract (the GPU).
     #
     # KNOWN DIVERGENCE (non-finite planes only): the zero-weight mask below
     # exists because per-row tap windows are padded to max_taps with w=0.0
@@ -214,10 +215,7 @@ def _apply_axis0(plane, lefts, weights, in_len: int):
     # second mask plumbed through all four lockstep consumers for behavior
     # reachable only via divide-by-zero chains; all finite inputs (and all
     # goldens) are bit-identical either way.
-    if jax.default_backend() == "cpu":
-        from .exact_math import nc_mul as _mul
-    else:
-        _mul = lambda a, b: a * b  # noqa: E731
+    from .exact_math import nc_mul as _mul
 
     out_len, taps = weights.shape
     lefts_j = jnp.asarray(lefts)
@@ -261,10 +259,7 @@ def _apply_axis0_indexed(plane, idx, weights):
     import jax
     import jax.numpy as jnp
 
-    if jax.default_backend() == "cpu":
-        from .exact_math import nc_mul as _mul
-    else:
-        _mul = lambda a, b: a * b  # noqa: E731
+    from .exact_math import nc_mul as _mul
 
     out_len, taps = weights.shape
     if taps <= 8:

@@ -4,8 +4,8 @@
 No reference counterpart — the reference's only spatial ops are the resize
 policies (`/root/reference/src/node/mod.rs:100-130`) and the wrap stencils
 (`height_to_normal.rs:55-56`); every texture authoring tool also offers an
-affine placement transform. Design follows the engine's conventions and the
-TPU's strengths (bare gathers measure near-roofline here — CLAUDE.md):
+affine placement transform. Design follows the engine's conventions (XLA
+lowers the bilinear taps to native gathers):
 
 - **Semantics**: the output pixel at center `(x+0.5, y+0.5)` bilinearly
   samples the input at the INVERSE-transformed coordinate, wrapping
@@ -28,7 +28,7 @@ TPU's strengths (bare gathers measure near-roofline here — CLAUDE.md):
   the shape-bucketed one — without the barrier the constant folder could
   fold the coordinate chain ~1 ulp off the runtime kernels and flip a
   gather index. No division in the traced path (reciprocals are host-side),
-  so f32 planes are bit-identical across backends (chip battery row
+  so f32 planes are bit-identical across backends (parity battery row
   `transform_affine`).
 - **Pads are transparent**: wrapped gather indices are always inside the
   LOGICAL extent, so a shape-bucketed padded plane gathers only true
@@ -83,7 +83,7 @@ def bilinear_wrap_gather(planes, u, v, wh, ww, row_local=None):
     """Shared bilinear toroidal sampler: `u`/`v` are continuous texel
     coordinates `[nr, nc]` (f32), `wh`/`ww` the barriered i32 wrap extents.
     Extracted verbatim from `transform_planes` (identical op sequence →
-    identical jaxpr → the chip-verified bit parity carries over) so the
+    identical jaxpr → the parity-verified bits carry over) so the
     Warp node samples through the exact same formulation.
 
     `row_local` (optional) remaps the GLOBAL wrapped row indices `y0`/`y1`

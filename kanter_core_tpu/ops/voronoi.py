@@ -41,8 +41,8 @@ Design rules shared with Noise/Pattern (the sibling source nodes):
   (CLAUDE.md contraction rule: XLA:CPU contracts mul+add into FMAs); the
   nearest-two tracking is pure exact selects/mins with a fixed unrolled
   candidate order (strict `<` keeps the earliest candidate on ties, the
-  same on every backend); `sqrt` goes through the backend gate (XLA:CPU
-  sqrt is IEEE, TPU uses `corrected_sqrt`); clips are exact min/max. The
+  same on every backend); `sqrt` goes through `exact_sqrt` (XLA:CPU
+  sqrt is IEEE, the GPU takes `corrected_sqrt`); clips are exact min/max. The
   `best` accumulators are seeded from candidate 0 (not a ±inf constant
   plane), so no constant-origin arithmetic exists for the constant folder
   to round differently (CLAUDE.md const-guard rule) — the one `inf` init
@@ -120,15 +120,11 @@ def voronoi_planes(rows, cols, fx, fy, px, py, jitter, seed):
     elementwise pass; the module docstring proves 5×5 exact for all
     jitter in [0, 1].
     """
-    import jax
     import jax.numpy as jnp
 
     f32 = jnp.float32
     u32 = jnp.uint32
-    if jax.default_backend() == "cpu":
-        _sqrt = jnp.sqrt  # XLA:CPU sqrt is hardware IEEE
-    else:
-        from .exact_math import corrected_sqrt as _sqrt
+    from .exact_math import exact_sqrt as _sqrt
 
     nr, nc = rows.shape[0], cols.shape[0]
     cy = rows.astype(f32) + f32(0.5)  # [nr] pixel centers

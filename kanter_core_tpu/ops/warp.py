@@ -5,7 +5,7 @@ No reference counterpart — the reference's spatial ops stop at resize
 policies and wrap stencils (`/root/reference/src/node/mod.rs:100-130`,
 `height_to_normal.rs:55-56`); a directional warp driven by a mask is the
 other staple placement op of texture authoring tools. The design reuses the
-Transform node's chip-verified machinery wholesale:
+Transform node's parity-verified machinery wholesale:
 
 - **Semantics**: output pixel `(x, y)` bilinearly samples the input (with
   toroidal wrap, the engine's stencil convention) at
@@ -39,7 +39,7 @@ Transform node's chip-verified machinery wholesale:
   row-gathers the band's rows out of the hoisted full-height map BEFORE
   the elementwise coordinate math (gathers commute bit-exactly with
   elementwise ops), the bucketed twin uses its padded plane positionally.
-  Chip battery row: `warp_directional`.
+  Parity battery row: `warp_directional`.
 - **Tiled cost**: like Transform, any output row may sample any input row
   (the map is unbounded data), so `_expand_rows` hoists the FULL input
   height — bands are correct but ancestor-dense on this node's inputs.
@@ -66,15 +66,7 @@ def warp_bindings(payload) -> dict:
     """The canonical `warp_<id>` program argument: `k = intensity·(cos θ,
     sin θ)` as one f32[2], host-computed in f64 with a single rounding
     (quarter-turn angles hit the exact table so axis-aligned warps move by
-    exactly `intensity·(m−0.5)` pixels).
-
-    For a bounded intensity the bindings also carry the Pallas kernel's
-    staircase pair table (`pallas_warp.warp_pairs`) as runtime arguments —
-    `pairs` is padded to the halo BUCKET's static cap, so angle/intensity
-    drags within a bucket re-run one cached executable with a fresh table.
-    `warp_pairs` cannot overflow the cap for an in-bucket intensity (the
-    cap math in `pairs_cap` bounds the dilated staircase), so the argument
-    STRUCTURE is a pure function of the fingerprint's halo bucket."""
+    exactly `intensity·(m−0.5)` pixels)."""
     deg, intensity = (float(v) for v in payload)
     d = deg % 360.0
     if d in _QUARTER:
@@ -83,24 +75,11 @@ def warp_bindings(payload) -> dict:
         r = np.deg2rad(np.float64(d))
         cos, sin = float(np.cos(r)), float(np.sin(r))
     k = np.float64(intensity) * np.asarray([cos, sin], np.float64)
-    out = {"k": k.astype(np.float32)}
-    halo = warp_halo(intensity)
-    if halo is not None:
-        from .pallas_warp import warp_pairs
-
-        pr = warp_pairs(out["k"], halo)
-        if pr is not None:
-            out["pairs"], out["npairs"] = pr
-    return out
-
-
-#: test hook: force the Pallas lowering (interpret mode) off-TPU so the
-#: CPU suite exercises the kernel path the chip runs (`blur` convention)
-FORCE_PALLAS_INTERPRET = False
+    return {"k": k.astype(np.float32)}
 
 
 def warp_planes(planes, strength, rows, cols, k, wrap_h, wrap_w,
-                row_local=None, table=None, halo=None, pallas_ok=True):
+                row_local=None):
     """Traceable directional warp of `planes` (each `[Hp, Wp]`, logical
     extent `(wrap_h, wrap_w)`) at output pixels `rows × cols` (GLOBAL i32
     index vectors). `strength` is the gray map ALIGNED to the output grid
@@ -108,47 +87,10 @@ def warp_planes(planes, strength, rows, cols, k, wrap_h, wrap_w,
     f32[2] displacement vector from `warp_bindings`; `wrap_h`/`wrap_w` are
     trace-time ints OR runtime i32 scalars (bucketed). `row_local` remaps
     global row indices into `planes` when they hold a row subset (see
-    `bilinear_wrap_gather`).
-
-    `table` (the `(pairs, npairs)` runtime arguments from `warp_bindings`)
-    plus `halo` dispatch the full-canvas dense geometry to the Pallas
-    staircase kernel on TPU — XLA lowers the 4 per-pixel gathers at
-    element-gather speed, 580 ms vs the kernel's few ms at 4096² (the
-    numbers and the bit-exactness argument live in `ops/pallas_warp.py`).
-    Banded/bucketed/sharded callers pass no table and keep the gather."""
-    import jax
+    `bilinear_wrap_gather`). XLA lowers the four bilinear taps to native
+    gathers on every backend."""
     import jax.numpy as jnp
     from jax import lax
-
-    if (
-        table is not None
-        and halo is not None
-        and pallas_ok
-        and row_local is None
-        and isinstance(wrap_h, int)
-        and isinstance(wrap_w, int)
-        and isinstance(rows, np.ndarray)
-        and isinstance(cols, np.ndarray)
-        and len(rows) == wrap_h
-        and len(cols) == wrap_w
-        and all(p.shape == (wrap_h, wrap_w) for p in planes)
-    ):
-        on_tpu = jax.default_backend() == "tpu" or FORCE_PALLAS_INTERPRET
-        from .pallas_warp import _warp_pallas_wrapped, fits_kernel
-
-        if on_tpu and fits_kernel(wrap_h, wrap_w, halo):
-            pairs, npairs = table
-            fn = _warp_pallas_wrapped(int(halo), int(pairs.shape[0]))
-            m = strength
-            if m.dtype != jnp.float32:
-                m = m.astype(jnp.float32)  # bf16 pipeline: f32 in flight
-            outs = []
-            for p in planes:
-                if p.dtype != jnp.float32:
-                    p = p.astype(jnp.float32)
-                outs.append(fn(p, m, jnp.asarray(k), jnp.asarray(pairs),
-                               jnp.asarray(npairs)))
-            return tuple(outs)
 
     f32 = jnp.float32
     # barrier the wrap extents — same constant-folder hazard as Transform
@@ -201,48 +143,19 @@ def fits_mesh(h: int, n: int, halo) -> bool:
     )
 
 
-def warp_planes_mesh(planes, strength, k, mesh, axis, halo, h, w,
-                     table=None, pallas_ok=True):
+def warp_planes_mesh(planes, strength, k, mesh, axis, halo, h, w):
     """shard_map'd warp: planes and strength row-sharded over `axis`; each
     device ring-`ppermute`s the ±`halo` boundary rows of its block (the
-    ring neighbors ARE the toroidal continuation, exactly as the sharded
-    blur kernel's exchange) and samples shard-locally through the same
-    `warp_planes` formulation with a global→local row remap. Without this,
-    GSPMD all-gathers every input plane of every Warp in a mesh program —
-    the displacement bound makes `2·halo·W` f32 rows per device the true
-    ICI cost. Gathered texels and lerp bits are identical to the dense
-    lowering (`test_mesh_engine` pins sharded == dense bit-for-bit).
-
-    With `table` (the staircase pair table from `warp_bindings`) and a
-    kernel-viable geometry, each shard runs the Mosaic staircase kernel
-    on its block instead of the gather (`pallas_warp._warp_pallas_sharded`)
-    — same exchange, same bits, element-gather speed replaced by the
-    kernel's streaming pass."""
-    import jax
+    ring neighbors ARE the toroidal continuation) and samples shard-locally
+    through the same `warp_planes` formulation with a global→local row
+    remap. Without this, GSPMD all-gathers every input plane of every Warp
+    in a mesh program — the displacement bound makes `2·halo·W` f32 rows per
+    device the true interconnect cost. Gathered texels and lerp bits are
+    identical to the dense lowering (`test_mesh_engine` pins sharded ==
+    dense bit-for-bit)."""
     import jax.numpy as jnp
     from jax import lax, shard_map
     from jax.sharding import PartitionSpec as P
-
-    if table is not None and pallas_ok:
-        on_tpu = jax.default_backend() == "tpu" or FORCE_PALLAS_INTERPRET
-        from .pallas_warp import _warp_pallas_sharded, fits_sharded
-
-        n_ = int(mesh.shape[axis or mesh.axis_names[0]])
-        if on_tpu and fits_sharded(h, w, halo, n_):
-            pairs, npairs = table
-            interp = jax.default_backend() != "tpu"
-            fn = _warp_pallas_sharded(int(halo), int(pairs.shape[0]),
-                                      mesh, interp, axis)
-            m = strength
-            if m.dtype != jnp.float32:
-                m = m.astype(jnp.float32)  # bf16 pipeline: f32 in flight
-            outs = []
-            for p in planes:
-                if p.dtype != jnp.float32:
-                    p = p.astype(jnp.float32)
-                outs.append(fn(p, m, jnp.asarray(k), jnp.asarray(pairs),
-                               jnp.asarray(npairs)))
-            return tuple(outs)
 
     n = int(mesh.shape[axis])
     block = h // n
@@ -277,35 +190,16 @@ def warp_planes_mesh(planes, strength, k, mesh, axis, halo, h, w,
     )(tuple(planes), strength, k)
 
 
-@functools.lru_cache(maxsize=8)
-def _kernel(halo=None):
+@functools.cache
+def _kernel():
     import jax
 
-    if halo is None:
-        return jax.jit(warp_planes, static_argnums=(5, 6))
-
-    def f(planes, strength, rows, cols, k, wrap_h, wrap_w, pairs, npairs):
-        # rebuild the index vectors CONCRETE from the static extents — as
-        # jit arguments they trace, and the dense-geometry gate (and the
-        # gather fallback's host-side arange) wants host arrays
-        rows = np.arange(wrap_h, dtype=np.int32)
-        cols = np.arange(wrap_w, dtype=np.int32)
-        return warp_planes(planes, strength, rows, cols, k, wrap_h, wrap_w,
-                           table=(pairs, npairs), halo=halo)
-
-    return jax.jit(f, static_argnums=(5, 6))
+    return jax.jit(warp_planes, static_argnums=(5, 6))
 
 
 @functools.lru_cache(maxsize=16)
-def _mesh_kernel(mesh, axis, halo, h, w, with_table=False):
+def _mesh_kernel(mesh, axis, halo, h, w):
     import jax
-
-    if with_table:
-        def f(planes, strength, k, pairs, npairs):
-            return warp_planes_mesh(planes, strength, k, mesh, axis, halo,
-                                    h, w, table=(pairs, npairs))
-
-        return jax.jit(f)
 
     def f(planes, strength, k):
         return warp_planes_mesh(planes, strength, k, mesh, axis, halo, h, w)
@@ -335,25 +229,16 @@ def process(slot_datas, node, mesh=None):
         axis = mesh.axis_names[0]
         halo = warp_halo(node.node_type.payload[1])
         if fits_mesh(h, int(mesh.shape[axis]), halo):
-            if "pairs" in b:
-                outs = _mesh_kernel(mesh, axis, halo, h, w, with_table=True)(
-                    tuple(planes), strength.image.planes[0].data(), b["k"],
-                    b["pairs"], b["npairs"],
-                )
-            else:
-                outs = _mesh_kernel(mesh, axis, halo, h, w)(
-                    tuple(planes), strength.image.planes[0].data(), b["k"]
-                )
+            outs = _mesh_kernel(mesh, axis, halo, h, w)(
+                tuple(planes), strength.image.planes[0].data(), b["k"]
+            )
             image = SlotImage([plane_from_device(o) for o in outs])
             return [SlotData(node.node_id, SlotId(0), image)]
-    halo_b = warp_halo(node.node_type.payload[1])
-    table = (b["pairs"], b["npairs"]) if "pairs" in b else None
-    outs = _kernel(halo_b if table is not None else None)(
+    outs = _kernel()(
         tuple(planes),
         strength.image.planes[0].data(),
         np.arange(h, dtype=np.int32), np.arange(w, dtype=np.int32),
         b["k"], h, w,
-        *((b["pairs"], b["npairs"]) if table is not None else ()),
     )
     image = SlotImage([plane_from_device(o) for o in outs])
     return [SlotData(node.node_id, SlotId(0), image)]

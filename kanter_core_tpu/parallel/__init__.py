@@ -1,10 +1,10 @@
-"""Multi-chip scale-out: batch data-parallel and spatially-sharded graph
+"""Multi-device scale-out: batch data-parallel and spatially-sharded graph
 evaluation over a `jax.sharding.Mesh`.
 
 The reference is single-host task-parallel only (SURVEY §2); here scale-out
-is expressed the TPU way: shard the batch axis of many canvases (DP) and/or
+is expressed with GSPMD: shard the batch axis of many canvases (DP) and/or
 the row axis of one huge canvas (spatial TP) with `NamedSharding`, jit the
-fused graph program, and let XLA GSPMD insert the ICI collectives (the
+fused graph program, and let XLA insert the collectives (the
 HeightToNormal wrap stencil's `jnp.roll` becomes a collective-permute halo
 exchange automatically).
 """

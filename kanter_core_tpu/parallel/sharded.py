@@ -53,10 +53,9 @@ class BatchedGraph:
     (e.g. `image_<id>` plane tuples); everything else (Value scalars, …) is
     broadcast.
 
-    `dtype="bfloat16"` stores leaves/outputs at bf16 (DESIGN.md §9) —
-    NOTE: measured SLOWER on large vmapped programs on this chip (XLA's
-    fusion cost model splits big fusions at the upcasts and materializes
-    f32 leaf copies); use it for footprint, not batched throughput.
+    `dtype="bfloat16"` stores leaves/outputs at bf16 (DESIGN.md §9) — a
+    footprint feature; its batched throughput on the GPU is not measured
+    yet (XLA's fusion cost model may split big fusions at the upcasts).
     """
 
     def __init__(
@@ -73,8 +72,8 @@ class BatchedGraph:
         # a mesh with a spatial "rows" axis keeps the Pallas blur viable:
         # the shard_map'd kernel (ring halo exchange) shards over that axis
         # and composes with the batch vmap (vmap-of-shard_map is supported
-        # and bit-identical). A batch-only mesh disables Pallas as before
-        # (an unsharded Mosaic custom call is not GSPMD-partitionable).
+        # and bit-identical). A batch-only mesh disables Pallas (an
+        # unsharded Pallas custom call is not GSPMD-partitionable).
         spatial_axis = (
             ROW_AXIS if (mesh is not None and ROW_AXIS in mesh.axis_names) else None
         )

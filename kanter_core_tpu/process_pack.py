@@ -4,7 +4,7 @@ Port of `/root/reference/src/process_pack.rs`: the manager keeps the set of
 in-flight node dispatches sorted by propagated priority, caps it at
 `max_count`, and preempts — higher-priority work cancels (via the node's
 cancel flag) the lowest-priority running node (`process_pack.rs:53-89`). On
-TPU, "running" means an enqueued/dispatched XLA program; preemption drops
+a device, "running" means an enqueued/dispatched XLA program; preemption drops
 queued dispatches — an in-flight device kernel is never aborted, and the
 commit-time cancel check discards its result (`engine.rs:80-102`).
 

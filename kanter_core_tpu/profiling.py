@@ -1,7 +1,7 @@
 """Tracing, metrics, and profiling.
 
 The reference has no tracing at all (SURVEY §5 — only `println!` on errors);
-this is greenfield observability for the TPU rebuild:
+this is greenfield observability for the JAX rebuild:
 
 - `NodeTimeline`: a bounded ring of per-node scheduling events (dispatch →
   commit, with wall durations and outcome), recorded by the engine.

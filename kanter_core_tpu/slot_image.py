@@ -30,20 +30,20 @@ def _jitted_converters():
 
     from .ops.common import f32_to_u8  # the one canonical conversion
 
-    # glibc-rounding div/pow on backends whose hardware ops are ~1 ulp off
-    # (see ops/exact_math.py); XLA CPU's plain ops ARE glibc already.
-    if jax.default_backend() == "cpu":
-        # XLA CPU's plain div IS glibc — but ONLY for runtime divisors: the
-        # algebraic simplifier rewrites division by a compile-time CONSTANT
-        # into multiplication by the reciprocal (~1 ulp off on ~39% of
-        # inputs for /3, measured), so every constant divisor here must
-        # hide behind an optimization_barrier to stay a true divide.
+    from .ops.exact_math import exact_pow as _pow, numerics
+
+    # glibc-rounding div/pow (see ops/exact_math.py). Where the plain divide
+    # is correctly rounded it stays — but ONLY for runtime divisors: the
+    # algebraic simplifier rewrites division by a compile-time CONSTANT into
+    # multiplication by the reciprocal (~1 ulp off on ~39% of inputs for
+    # /3, measured), so every constant divisor here hides behind an
+    # optimization_barrier to stay a true divide.
+    if numerics().div_correctly_rounded:
         from jax import lax
 
         _div = lambda a, b: a / lax.optimization_barrier(b)  # noqa: E731
-        _pow = jnp.power
     else:
-        from .ops.exact_math import corrected_div as _div, ds_pow as _pow
+        from .ops.exact_math import corrected_div as _div
 
     def srgb_to_linear(x):
         # reference formula at `slot_data.rs:100-109` (applied by `to_u8_srgb`
@@ -62,12 +62,10 @@ def _jitted_converters():
         )
 
     def pack_u32(r8, g8, b8, a8):
-        # Elementwise u32 pack instead of a channel-stack: the [H, W, 4]-u8
-        # stack lowers to a layout transpose on TPU, while r|g<<8|b<<16|a<<24
-        # stays a pure fused elementwise op (measured ~796 vs ~711 GB/s at
-        # 2048², ~778 vs ~707 at 4096², and 2.5× over a Pallas planar pack).
-        # The host views the little-endian u32 buffer as interleaved RGBA
-        # bytes for free.
+        # Elementwise u32 pack instead of a channel-stack: r|g<<8|b<<16|a<<24
+        # stays one fused elementwise op with no layout transpose, and the
+        # host views the little-endian u32 buffer as interleaved RGBA bytes
+        # for free.
         return (
             r8.astype(jnp.uint32)
             | (g8.astype(jnp.uint32) << 8)
@@ -108,8 +106,8 @@ def _jitted_converters():
     @jax.jit
     def rgb_mean(r, g, b):
         # gray = ((r + g) + b) / 3 — same association as `slot_image.rs:247-250`;
-        # the /3 goes through the gated div so TPU's reciprocal-multiply
-        # rounding can't shift the gray plane's bits off the CPU pipeline
+        # the /3 goes through the gated div so the GPU's loose division
+        # can't shift the gray plane's bits off the CPU pipeline
         s = (up(r) + up(g)) + up(b)
         return _div(s, jnp.full_like(s, 3.0))
 
@@ -244,7 +242,7 @@ class SlotImage:
         if self._all_planes_off_device():
             # spilled planes: run the sRGB pack on the in-process XLA:CPU
             # backend instead of round-tripping hundreds of MB through the
-            # (possibly remote) device — the same economy to_u8's native
+            # device — the same economy to_u8's native
             # host pack buys. u8 outputs are identical: the golden contract
             # is the CPU backend, and the corrected div/pow formulations
             # agree with glibc after u8 quantization on the full grid.

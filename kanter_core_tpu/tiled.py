@@ -1344,12 +1344,8 @@ class TiledEvaluator:
                 # `need` is the full height — the band input IS the whole
                 # plane; run the full propagation and slice the band rows
                 # (recomputed per band: band-dense, like Transform).
-                # pallas_ok=False: bands may themselves be GSPMD-sharded
-                # under `mesh`, and capacity is correctness-first — the
-                # jnp ladder is bit-identical by the kernel's contract
                 full = distance_plane(
-                    by_slot[SlotId(0)].planes[0], args[f"dsv_{nid}"],
-                    pallas_ok=False,
+                    by_slot[SlotId(0)].planes[0], args[f"dsv_{nid}"]
                 )
                 env[(node_id, SlotId(0))] = ImgVal([full[args[f"dsr_{nid}"]]])
                 continue

@@ -1,7 +1,7 @@
 // Native host-side runtime kernels for kanter_core_tpu.
 //
 // The reference implements its whole runtime in native (Rust) code; the
-// TPU rebuild keeps compute on the device, but three host paths stay hot
+// JAX rebuild keeps compute on the device, but three host paths stay hot
 // and byte-oriented, so they live here as a small C++ library loaded via
 // ctypes (plain C ABI, no Python headers needed):
 //

@@ -1,8 +1,7 @@
-"""Chip measurement of a size drag on a Distance-containing graph
-(VERDICT r4 #2 'Done' criterion).
+"""GPU measurement of a size drag on a Distance-containing graph.
 
 Drags a SpecificSize payload through K sizes inside one bucket on the
-REAL chip, through the live engine, twice: bucket_sizes=True (the r5
+GPU, through the live engine, twice: bucket_sizes=True (the r5
 segmented route — bucketed segments reuse one executable per bucket, the
 Distance segment dense-compiles per size) vs the plain dense processor
 (recompiles the WHOLE pipeline per size). Reports per-tick walls. The
@@ -10,7 +9,7 @@ expected shape: the segmented route pays the Distance-segment compile
 per new size but NOT the full-pipeline compile; within-bucket repeat
 sizes are compile-free in the segmented route.
 
-Run: python scripts/exp_drag_chip.py   (uses the real chip)
+Run: python scripts/exp_drag_chip.py   (on the GPU)
 """
 
 from __future__ import annotations

@@ -1,14 +1,14 @@
 """Verification harness for kanter_core_tpu.ops.exact_math.ds_pow.
 
-Goal: make TPU `pow` match glibc powf (what the reference's Rust f32 math
-links against, and what XLA CPU emits) bit-for-bit on the u8-decoded input
-domain, like the Dekker-corrected division in ops/mix.py. Computes
+Goal: make the GPU's `pow` match glibc powf (what the reference's Rust f32
+math links against, and what XLA CPU emits) bit-for-bit on the u8-decoded
+input domain, like the Dekker-corrected division in ops/mix.py. Computes
 exp2(b * log2(a)) with every intermediate held as an unevaluated pair of
 f32s (~49 significant bits), no FMA required.
 
-Run on CPU (reference == XLA CPU pow == glibc) or TPU:
-    python scripts/exp_ds_pow.py        # TPU if available
-    JAX_FORCE_CPU=1 python scripts/exp_ds_pow.py
+Run on the GPU or the CPU (reference == XLA CPU pow == glibc):
+    python scripts/exp_ds_pow.py        # the GPU if available
+    JAX_PLATFORMS=cpu python scripts/exp_ds_pow.py
 """
 
 import os
@@ -34,10 +34,6 @@ def compare(name, got, ref):
 
 
 def main():
-    if os.environ.get("JAX_FORCE_CPU"):
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
     import jax
 
     print("backend:", jax.default_backend())

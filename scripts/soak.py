@@ -5,24 +5,14 @@ tracking, fusion, memoization, cancellation, and eviction must never change
 pixels.
 
 Run: python scripts/soak.py [iters] [seed]
-Backend: KANTER_SOAK_BACKEND=cpu|default (default: whatever JAX picks — the
-real TPU when the plugin is registered; both the engine render and the
-ground-truth evaluation run on the same backend, so equality is meaningful
-either way. Historical note: an earlier version probed the backend before
-forcing CPU, which is a no-op post-initialization — so soaks have in fact
-been running chip-side all along, 1000+ iterations green on a v5e.)"""
+Backend: whatever JAX picks (`JAX_PLATFORMS=cpu` for the CPU); both the
+engine render and the ground-truth evaluation run on the same backend, so
+equality is meaningful either way."""
 
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-import jax
-
-if os.environ.get("KANTER_SOAK_BACKEND") == "cpu":
-    # must run before ANY backend probe — a probe initializes the platform
-    # and makes this update a silent no-op (see CLAUDE.md numerics notes)
-    jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 
@@ -92,7 +82,7 @@ def _main_loop(tp, rng, tile_bytes, bucket_sizes, precision):
         # structured source: BOTH Pattern outputs feed mixes so the
         # two-output source soaks under churn (NOTE: adding this node
         # REMAPPED every seed's sequence — pre-Pattern soak evidence is
-        # historical, VALIDATION.md)
+        # historical)
         pattern = g.add_node(Node(NodeType.Pattern(
             16, 16, "Brick", cells_x=3, cells_y=5, mortar=0.15, bevel=0.06,
             seed=1,
@@ -100,25 +90,25 @@ def _main_loop(tp, rng, tile_bytes, bucket_sizes, precision):
         # cellular source: the borders field modulates a mix so the
         # three-output source soaks under churn (NOTE: adding this node
         # REMAPPED every seed's sequence — pre-Voronoi soak evidence is
-        # historical, VALIDATION.md)
+        # historical)
         vor = g.add_node(Node(NodeType.Voronoi(
             16, 16, cells_x=3, cells_y=3, jitter=0.8, seed=2,
         )))
         # mortar spread: the jump-flood Distance field of the groove mask
         # — the one GLOBAL iterative op — soaks under churn (NOTE: adding
-        # this node REMAPPED every seed's sequence — r4, VALIDATION.md's
+        # this node REMAPPED every seed's sequence — r4's
         # DISTANCE REMAP entry)
         dst = g.add_node(Node(NodeType.Distance(6.0)))
         # gradient source: a Ramp modulates a mix input so the fourth
         # procedural source soaks under churn (NOTE: adding this node
-        # REMAPPED every seed's sequence again — r4, VALIDATION.md's
+        # REMAPPED every seed's sequence again — r4's
         # RAMP REMAP entry)
         rmp = g.add_node(Node(NodeType.Ramp(16, 16, "Radial", 0.0, 0.5, 0.5, 1.2)))
         # final grade stage (NOTE: adding this node remapped every seed's
-        # sequence again — see VALIDATION.md's HSV REMAP entry)
+        # sequence again — see the HSV remap)
         hsv = g.add_node(Node(NodeType.Hsv(10.0, 1.1, 1.0)))
         # multi-scale occlusion of the groove mask (NOTE: adding this node
-        # remapped every seed's sequence — see VALIDATION.md's AO REMAP)
+        # remapped every seed's sequence — see the AO remap)
         ao = g.add_node(Node(NodeType.AmbientOcclusion(2.0, 1.0)))
         out = g.add_node(Node(NodeType.OutputRgba("out")))
         # initial wiring (blur → warp between combine and output; the warp
@@ -160,7 +150,7 @@ def _main_loop(tp, rng, tile_bytes, bucket_sizes, precision):
                 elif action == 1:
                     # NOTE: widening 5 → len(MixType) (extension blend
                     # modes) REMAPS every seed's edit sequence — evidence
-                    # predating the widening is historical (VALIDATION.md)
+                    # predating the widening is historical
                     mix = mixes[rng.integers(len(mixes))]
                     g.set_mix_type(mix, list(MixType)[rng.integers(len(MixType))])
                 elif action == 2:
@@ -268,7 +258,7 @@ def _main_loop(tp, rng, tile_bytes, bucket_sizes, precision):
         # work may still be in flight, then either redo it or leave it
         # undone — the render + truth comparison below uses whatever
         # topology results. NOTE: adding this draw REMAPPED every seed's
-        # sequence again (VALIDATION.md soak row).
+        # sequence again (soak history).
         history = rng.random()
         if history < 0.25 and lg.undo_depth() > 1:  # never undo the build
             assert lg.undo()

@@ -50,7 +50,7 @@ TOP_LEVEL = [
     "Node", "NodeType", "MixType", "ResizePolicy", "ResizeFilter", "Side",
     "SlotType", "Slot", "NodeId", "SlotId", "Edge", "Size", "SlotData",
     "SlotImage", "TexProError", "ErrorKind", "Priority", "NodeState",
-    # TPU-native additions documented in PARITY.md
+    # extension additions documented in PARITY.md
     "CompiledGraph", "compile_graph",
 ]
 

@@ -72,7 +72,7 @@ def test_size_drag_compiles_per_bucket():
     per bucket crossed, not once per size, with bit-exact unpadded output
     vs the unbucketed path at sampled sizes. (Drag range 360→560 px — two
     buckets at 256: 512 and 768 — keeps the single-core CPU suite fast;
-    scripts/bench_bucketed.py runs the 1000→1400 spec drag on chip.)"""
+    scripts/bench_bucketed.py runs the 1000→1400 spec drag on the GPU.)"""
     g, mix, out = _drag_chain()
     bg = BucketedGraph(g, targets=[(out, SlotId(0))])
 

@@ -152,7 +152,7 @@ def test_sharded_batch_eval():
     result = bg(**{key: (sharded,)})
     plane = result[(out, SlotId(0))][0]
     assert plane.shape == (8, 32, 32)
-    # multi-chip execution is BIT-IDENTICAL to single-host math (SURVEY §4's
+    # multi-device execution is BIT-IDENTICAL to single-host math (SURVEY §4's
     # multi-node analog: sharded == single-device)
     assert np.array_equal(np.asarray(plane), np.float32(1.0) - batch)
     assert "batch" in str(plane.sharding)
@@ -218,7 +218,7 @@ def test_row_sharded_h2n_halo():
 def test_vmap_bit_transparent():
     """Batched (vmapped) kernels must produce the SAME BITS as per-canvas
     evaluation — BatchedGraph results are interchangeable with single-canvas
-    renders (verified on a real chip too; see scripts/tpu_parity.py)."""
+    renders (chip_smoke.py checks it on four GPUs too)."""
     import jax
 
     from kanter_core_tpu import Size

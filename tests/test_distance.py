@@ -270,4 +270,4 @@ def test_distance_packed_bound_raises_texpro_error():
 
     mask = np.zeros((32768, 1), np.float32)
     with pytest.raises(TexProError):
-        distance_plane(mask, 8.0, pallas_ok=False)
+        distance_plane(mask, 8.0)

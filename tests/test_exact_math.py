@@ -5,7 +5,7 @@ On the CPU backend, plain XLA div/pow ARE glibc (the reference's math), so:
 - `ds_pow` must be bit-identical except on inputs glibc misrounds (its powf
   has ~0.82 ulp max error; ds_pow returns the correctly-rounded value), and
   after u8 export quantization the two must agree on the FULL u8 grid —
-  which is what golden parity needs on TPU.
+  which is what golden parity needs on the GPU.
 """
 
 import jax
@@ -211,3 +211,76 @@ def test_constant_divisor_division_is_true_ieee_on_cpu():
     expect = np.clip(x / np.float32(12.92), 0.0, 1.0) * np.float32(255.0)
     expect = expect.astype(np.uint8).reshape(64, 64)  # truncating cast, Rust `as u8`
     assert np.array_equal(v, expect)
+
+
+# --- the backend numerics table (ops/exact_math.numerics) -------------------
+
+def test_numerics_cpu_row_is_what_xla_cpu_does():
+    """The CPU row is what the gates assume on XLA:CPU — and what the probe
+    measures here."""
+    from kanter_core_tpu.ops.exact_math import Numerics, numerics
+    from kanter_core_tpu.parity import probe_numerics
+
+    assert numerics() is numerics("cpu")
+    assert numerics("cpu") == Numerics(
+        fma_contracts=True, div_correctly_rounded=True,
+        sqrt_correctly_rounded=True, pow_is_glibc=True,
+    )
+    assert probe_numerics() == numerics("cpu")
+
+
+@pytest.mark.parametrize("platform", ["rocm", "METAL", "neuron", ""])
+def test_numerics_unknown_platform_raises(platform):
+    from kanter_core_tpu.ops.exact_math import numerics
+
+    with pytest.raises(ValueError, match="no numerics row"):
+        numerics(platform)
+
+
+def test_numerics_gpu_row_takes_every_correction():
+    """The GPU row (measured on an H100): no FMA contraction, so nc_mul is
+    a plain multiply; divide, sqrt and pow all need their corrections."""
+    from kanter_core_tpu.ops.exact_math import numerics
+
+    row = numerics("gpu")
+    assert not row.fma_contracts
+    assert not (row.div_correctly_rounded or row.sqrt_correctly_rounded
+                or row.pow_is_glibc)
+
+
+@pytest.mark.parametrize("platform,plain", [("cpu", True), ("gpu", False)])
+def test_exact_helpers_follow_the_row(monkeypatch, platform, plain):
+    """exact_div/sqrt/pow emit the plain op exactly where the row says the
+    hardware op is already right, and nc_mul guards exactly where XLA
+    contracts — checked on the traced jaxpr, with the row swapped in."""
+    from kanter_core_tpu.ops import exact_math as em
+
+    monkeypatch.setattr(jax, "default_backend", lambda: platform)
+    x = np.float32(0.3) + np.zeros(4, np.float32)
+
+    def n_eqns(fn, *args):
+        # a fresh wrapper per call: make_jaxpr caches traces per function
+        return len(jax.make_jaxpr(lambda *a: fn(*a))(*args).eqns)
+
+    assert (n_eqns(em.exact_div, x, x) == 1) == plain
+    assert (n_eqns(em.exact_sqrt, x) == 1) == plain
+    assert (n_eqns(em.exact_pow, x, x) == 1) == plain
+    # nc_mul: one multiply where XLA does not contract (the GPU)
+    assert (n_eqns(em.nc_mul, x, x) == 1) == (not plain)
+
+
+def test_corrected_sqrt_near_midpoint_roots():
+    """Near-midpoint roots (x = 4ᵏ·(1 − 2⁻²⁴), 1 ± k ulp): the Newton step
+    can round onto an exact midpoint; the tie is decided exactly."""
+    from kanter_core_tpu.ops.exact_math import corrected_sqrt
+
+    k = np.arange(1, 1 << 16, dtype=np.float64)
+    xs = np.concatenate([
+        np.array([np.nextafter(np.float32(4.0) ** e, np.float32(0)) for e in range(-20, 20)],
+                 np.float32),
+        (1 + k * 2.0 ** -23).astype(np.float32),
+        (1 - k * 2.0 ** -24).astype(np.float32),
+        np.random.default_rng(0).random(1 << 16, dtype=np.float32),
+    ])
+    got = np.asarray(jax.jit(corrected_sqrt)(xs))
+    assert np.array_equal(got.view(np.uint32), np.sqrt(xs).view(np.uint32))

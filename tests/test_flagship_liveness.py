@@ -14,9 +14,8 @@ import pytest
 
 from kanter_core_tpu import SlotId
 from kanter_core_tpu.compiler import CompiledGraph
+from kanter_core_tpu.graphs import flagship_graph
 from kanter_core_tpu.node import NodeTypeKind as K
-
-from __graft_entry__ import _flagship
 
 CANVAS = 64
 
@@ -27,7 +26,7 @@ def _outputs(prog, out):
 
 @pytest.fixture(scope="module")
 def flagship():
-    graph, inputs, out = _flagship(CANVAS)
+    graph, inputs, out = flagship_graph(CANVAS)
     prog = CompiledGraph(graph, targets=[(out, SlotId(0))])
     rng = np.random.default_rng(0)
     for node in inputs:

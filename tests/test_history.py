@@ -1,4 +1,4 @@
-"""Edit history (undo/redo) — TPU-native extension; the reference has no
+"""Edit history (undo/redo) — an extension; the reference has no
 undo (`/root/reference/src/live_graph.rs` exposes edits only forward).
 
 Contract under test (live_graph.py `_edit_unit`/`undo`/`redo`):

@@ -1,7 +1,7 @@
 """Mesh-aware engine: the interactive LiveGraph path executes fused
 partitions row-sharded over a device mesh, bit-identically to single-device.
 
-This is the multi-chip replacement for the reference's thread-per-node
+This is the multi-device replacement for the reference's thread-per-node
 scaling (`/root/reference/src/engine.rs:288-306`): `TextureProcessor(mesh=…)`
 makes every fused dispatch place its planes with
 `NamedSharding(mesh, P('rows', None))` and lets GSPMD partition the program
@@ -110,44 +110,55 @@ def test_mesh_engine_output_is_sharded(mesh_tex_pro):
 
 
 def test_mesh_engine_blur_runs_sharded_pallas(monkeypatch):
-    """The Pallas blur composes with the mesh: a fused partition on the
-    8-device mesh traces the shard_map'd Mosaic kernel (ring ppermute halo
-    exchange, interpret mode here — `ops/pallas_blur._blur_pallas_sharded`)
-    and the result stays bit-identical to the plain single-device
-    processor. Previously every mesh program forced the jnp lowering and
-    lost the kernel's measured 7-10× win."""
+    """The kernel blur composes with the mesh: a fused partition on the
+    8-device mesh traces the shard_map'd Pallas-Triton kernel (ring
+    ppermute halo exchange, interpret mode here —
+    `ops/blur_triton.blur_kernel_sharded`) and the result stays
+    bit-identical to the plain single-device processor's jnp lowering."""
     from kanter_core_tpu.ops import blur as blur_mod
-    from kanter_core_tpu.ops import pallas_blur
+    from kanter_core_tpu.ops import blur_triton
+
+    def build(g):
+        # a procedural height field (no image files): noise → h2n → blur
+        nz = g.add_node(Node(NodeType.Noise(96, 128, 4, 3, 5, 0.5)))
+        h2n = g.add_node(Node(NodeType.HeightToNormal()))
+        bl = g.add_node(Node(NodeType.Blur(1.5)))
+        out = g.add_node(Node(NodeType.OutputRgba("out")))
+        g.connect(nz, h2n, SlotId(0), SlotId(0))
+        g.connect(h2n, bl, SlotId(0), SlotId(0))
+        g.connect(bl, out, SlotId(0), SlotId(0))
+        return out
 
     # the PLAIN reference renders BEFORE the interpret-force monkeypatch, so
     # it runs the production jnp lowering — the final equality is sharded
-    # Pallas vs jnp, not Pallas vs Pallas (a shared kernel bug must fail it)
+    # kernel vs jnp, not kernel vs kernel (a shared kernel bug must fail it)
     tp = TextureProcessor(10_000_000)
     try:
         lg = tp.new_live_graph()
         with lg.write() as g:
-            out = _build_stencil_graph(g)
+            out = build(g)
         plain = render_u8(lg, out)
     finally:
         tp.shutdown_now()
 
     monkeypatch.setattr(blur_mod, "FORCE_PALLAS_INTERPRET", True)
-    calls = []
-    real = pallas_blur._blur_block
+    halo_passes = []
+    real = blur_triton._pass_call
 
     def counting(*a, **k):
-        calls.append(1)
+        if a[4]:  # the halo-form vertical pass only the sharded kernel uses
+            halo_passes.append(a)
         return real(*a, **k)
 
-    monkeypatch.setattr(pallas_blur, "_blur_block", counting)
+    monkeypatch.setattr(blur_triton, "_pass_call", counting)
 
     tp = TextureProcessor(10_000_000, mesh=_row_mesh())
     try:
         lg = tp.new_live_graph()
         with lg.write() as g:
-            out = _build_stencil_graph(g)
+            out = build(g)
         mesh_px = render_u8(lg, out)
-        assert calls, "mesh path did not trace the Pallas kernel"
+        assert halo_passes, "mesh path did not trace the sharded kernel"
     finally:
         tp.shutdown_now()
     assert np.array_equal(plain, mesh_px)

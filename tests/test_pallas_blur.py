@@ -1,9 +1,10 @@
-"""Pallas blur kernel parity (interpret mode on CPU).
+"""Pallas-Triton blur kernel parity (interpret mode on CPU).
 
-The kernel replays `blur._blur_axis0`'s arithmetic exactly; on the real
-chip it is 7-10× faster than the XLA lowering and bit-identical
-(`scripts/tpu_parity.py`). Here interpret mode checks bit-equality across
-chunk boundaries, wrap halos, odd heights, and radius > height."""
+The kernel (`ops/blur_triton.py`) replays `blur._blur_axis0`'s arithmetic
+exactly; on the GPU it runs compiled and `chip_smoke.py` compares it with
+the jnp form there. Here interpret mode checks bit-equality across block
+boundaries, wrap halos, odd extents and radius > height, and the wrappers'
+vmap, gradient, sharding and dispatch."""
 
 import jax
 import jax.numpy as jnp
@@ -11,7 +12,17 @@ import numpy as np
 import pytest
 
 from kanter_core_tpu.ops.blur import _blur_axis0, blur_plane, gaussian_taps
-from kanter_core_tpu.ops.pallas_blur import _blur_pallas_wrapped, blur_pallas
+from kanter_core_tpu.ops.blur_triton import (
+    blur_kernel,
+    blur_kernel_sharded,
+    blur_rows_with_halo,
+    blur_triton,
+    fits_sharded,
+)
+
+
+def _taps(sigma):
+    return tuple(float(w) for w in gaussian_taps(round(float(sigma), 6)))
 
 
 def _jnp_blur(p, sigma):
@@ -20,83 +31,77 @@ def _jnp_blur(p, sigma):
     return _blur_axis0(vert.T, taps).T
 
 
+def _bits(x):
+    return np.asarray(x).view(np.uint32)
+
+
 @pytest.mark.parametrize(
     "h,w,sigma",
     [
         (96, 128, 1.0),
-        (50, 128, 2.2),
+        (50, 128, 2.2),  # height not a block multiple
         (200, 256, 5.0),
-        (7, 128, 1.0),  # height < one chunk
+        (7, 128, 1.0),  # height < one block
         (64, 128, 20.0),  # radius (60) ≈ height: halo wraps more than once
-        (24, 128, 15.0),  # radius (45) > height
+        (24, 100, 15.0),  # radius (45) > height; width not a block multiple
     ],
 )
 def test_blur_pallas_matches_jnp(h, w, sigma):
     rng = np.random.default_rng(hash((h, w, int(sigma * 10))) % 2**32)
     p = rng.random((h, w), dtype=np.float32)
     # EAGER reference: jitting the whole 2·(2r+1)-tap roll chain trips
-    # XLA:CPU's compile-time blowup on many-tap shifted sums (146 s at
-    # σ=20 on a 1-core host — past the 120 s deadlock watchdog). Eager is
-    # bit-identical to the jitted lowering here (verified: no constants to
-    # fold, and nc_mul already forces separately-rounded products on CPU
-    # under jit and eager alike); eager==jit parity for jit-sized σ stays
-    # pinned by test_blur.py's fuzz rows and the chip battery.
+    # XLA:CPU's compile-time blowup on many-tap shifted sums; eager is
+    # bit-identical to the jitted lowering here (nc_mul forces separately
+    # rounded products under jit and eager alike).
     ref = _jnp_blur(p, sigma)
-    got = blur_pallas(p, gaussian_taps(sigma), chunk_rows=16, interpret=True)
-    assert np.array_equal(np.asarray(ref), np.asarray(got))
+    got = blur_triton(p, _taps(sigma), block=(16, 64), interpret=True)
+    assert np.array_equal(_bits(ref), _bits(got))
 
 
-def test_blur_pallas_halo_kernel_selected_and_matches_padded():
-    """The in-kernel-DMA halo kernel (no XLA-materialized padded copy) is
-    chosen for viable geometries — including the flagship 4096² one — and
-    is bit-identical to the padded-copy kernel it replaces; unviable
-    geometries still report 0 and fall back."""
-    from kanter_core_tpu.ops.pallas_blur import _blur_kernel, _pick_halo_chunk
-
-    assert _pick_halo_chunk(4096, 4096, 7, 64) == 32  # sigma=1 flagship (measured-best cap)
-    assert _pick_halo_chunk(4096, 4096, 31, 48) == 32  # sigma=5: target max(32, rp 16)
-    assert _pick_halo_chunk(50, 128, 7, 16) == 0  # height not 8-aligned
-    assert _pick_halo_chunk(24, 128, 91, 16) == 0  # rp 48 > height: no c >= rp
-    assert _pick_halo_chunk(64, 128, 1, 16) == 0  # radius 0: no strips
-
+def test_blur_pallas_halo_rows_match_wrapped_block():
+    """The sharded kernel's halo form (rows from explicit halo rows, no row
+    wrap) equals the wrapped blur on the interior rows."""
     rng = np.random.default_rng(21)
-    p = rng.random((96, 128), dtype=np.float32)
-    taps = tuple(float(w) for w in gaussian_taps(2.2))
-    got = np.asarray(blur_pallas(p, taps, chunk_rows=16, interpret=True))
-    ref = np.asarray(_blur_kernel(96, 128, taps, 16, True)(p))
-    assert np.array_equal(got.view(np.uint32), ref.view(np.uint32))
+    p = rng.random((96, 70), dtype=np.float32)
+    taps = _taps(2.2)
+    r = (len(taps) - 1) // 2
+    ref = np.asarray(blur_triton(p, taps, interpret=True))
+    lo, hi = 32, 64
+    ext = np.concatenate([p[lo - r:lo], p[lo:hi], p[hi:hi + r]], axis=0)
+    got = np.asarray(blur_rows_with_halo(ext, taps, interpret=True))
+    assert np.array_equal(_bits(ref[lo:hi]), _bits(got))
 
 
 def test_blur_pallas_chunk_size_invariance():
     rng = np.random.default_rng(3)
     p = rng.random((120, 256), dtype=np.float32)
-    taps = gaussian_taps(2.0)
-    ref = np.asarray(blur_pallas(p, taps, chunk_rows=8, interpret=True))
-    for chunk in (24, 64, 120):
-        got = np.asarray(blur_pallas(p, taps, chunk_rows=chunk, interpret=True))
-        assert np.array_equal(ref, got), f"chunk_rows={chunk}"
+    taps = _taps(2.0)
+    ref = np.asarray(blur_triton(p, taps, block=(8, 32), interpret=True))
+    for block in ((16, 128), (32, 64), (128, 256)):
+        got = np.asarray(blur_triton(p, taps, block=block, interpret=True))
+        assert np.array_equal(_bits(ref), _bits(got)), f"block={block}"
 
 
 def test_blur_pallas_wrapper_vmaps():
-    """The custom_vmap wrapper lax.maps the rank-2 kernel; batched results
-    must equal per-plane calls bit-for-bit."""
-    taps = tuple(float(w) for w in gaussian_taps(1.5))
+    """The wrapper batches under vmap; batched results equal per-plane calls
+    bit-for-bit."""
+    taps = _taps(1.5)
     rng = np.random.default_rng(7)
-    batch = rng.random((3, 40, 128), dtype=np.float32)
-    fn = _blur_pallas_wrapped(taps)
+    batch = rng.random((3, 40, 72), dtype=np.float32)
+    fn = blur_kernel(taps, True)
     got = np.asarray(jax.jit(jax.vmap(fn))(batch))
     ref = np.stack([np.asarray(fn(b)) for b in batch])
-    assert np.array_equal(got.view(np.uint32), ref.view(np.uint32))
+    assert np.array_equal(_bits(got), _bits(ref))
 
 
 def test_blur_pallas_custom_vjp_matches_jnp_grad():
-    """The wrapper's backward (jnp re-trace) must agree with differentiating
-    the jnp path directly."""
-    taps = tuple(float(w) for w in gaussian_taps(1.0))
+    """The wrapper's backward (jnp re-trace) agrees with differentiating the
+    jnp path directly."""
+    taps = _taps(1.0)
     rng = np.random.default_rng(9)
-    p = rng.random((32, 128), dtype=np.float32)
+    p = rng.random((32, 48), dtype=np.float32)
 
-    g_pal = jax.grad(lambda x: jnp.sum(_blur_pallas_wrapped(taps)(x)) ** 2)(p)
+    g_pal = jax.grad(lambda x: jnp.sum(blur_kernel(taps, True)(x)) ** 2)(p)
     g_ref = jax.grad(lambda x: jnp.sum(_jnp_blur(x, 1.0)) ** 2)(p)
     np.testing.assert_array_equal(np.asarray(g_ref), np.asarray(g_pal))
 
@@ -109,60 +114,59 @@ def _mesh(n):
 
 @pytest.mark.parametrize("n,h,w,sigma", [
     (8, 256, 128, 1.0),
-    (8, 64, 256, 2.2),   # block_h 8 == rp: minimum viable block
+    (8, 64, 96, 2.2),    # block_h 8 ≥ radius 7: minimum viable block
     (4, 96, 128, 5.0),
-    (1, 96, 128, 2.2),   # single-device mesh (the real-chip battery case)
+    (1, 96, 128, 2.2),   # single-device mesh
 ])
 def test_blur_pallas_sharded_matches_jnp(n, h, w, sigma):
-    """The shard_map'd kernel (ring ppermute halo exchange + per-shard Mosaic
-    kernel) is bit-identical to the jnp wrap formulation — the mesh analog of
-    `height_to_normal.rs:55-56`'s toroidal sampling."""
-    from kanter_core_tpu.ops.pallas_blur import _blur_pallas_sharded, fits_sharded
-
-    taps = gaussian_taps(round(float(sigma), 6))
-    assert fits_sharded(h, w, len(taps), n)
+    """The shard_map'd kernel (ring ppermute halo exchange + per-shard
+    kernel) is bit-identical to the jnp wrap formulation — the mesh analog
+    of `height_to_normal.rs:55-56`'s toroidal sampling."""
+    taps = _taps(sigma)
+    assert fits_sharded(h, len(taps), n)
     rng = np.random.default_rng(hash((n, h, w)) % 2**32)
     p = rng.random((h, w), dtype=np.float32)
     ref = np.asarray(jax.jit(lambda x: _jnp_blur(x, sigma))(p))
-    got = np.asarray(
-        jax.jit(_blur_pallas_sharded(tuple(float(x) for x in taps), _mesh(n), True))(p)
-    )
-    assert np.array_equal(ref.view(np.uint32), got.view(np.uint32))
+    got = np.asarray(jax.jit(blur_kernel_sharded(taps, _mesh(n), "rows", True))(p))
+    assert np.array_equal(_bits(ref), _bits(got))
 
 
 def test_blur_pallas_sharded_gates():
     """Geometries the sharded kernel cannot serve fall back to jnp: rows not
-    divisible by the mesh, blocks smaller than the halo, unaligned widths."""
-    from kanter_core_tpu.ops.pallas_blur import fits_sharded
+    divisible by the mesh, blocks smaller than the halo."""
+    assert not fits_sharded(100, 7, 8)  # 100 % 8 != 0
+    assert not fits_sharded(64, 31, 8)  # block 8 < radius 15
+    assert fits_sharded(256, 7, 8)
+    assert fits_sharded(64, 17, 8)  # block 8 == radius 8
 
-    assert not fits_sharded(100, 128, 7, 8)  # 100 % 8 != 0
-    assert not fits_sharded(64, 128, 31, 8)  # block 8 < radius 15
-    assert not fits_sharded(256, 100, 7, 8)  # width not lane-aligned
-    assert fits_sharded(256, 128, 7, 8)
+
+def _count_passes(monkeypatch):
+    from kanter_core_tpu.ops import blur as blur_mod
+    from kanter_core_tpu.ops import blur_triton
+
+    monkeypatch.setattr(blur_mod, "FORCE_PALLAS_INTERPRET", True)
+    calls = []
+    real = blur_triton._pass_call
+
+    def counting(*a, **k):
+        calls.append(a)
+        return real(*a, **k)
+
+    monkeypatch.setattr(blur_triton, "_pass_call", counting)
+    return calls
 
 
 def test_blur_plane_sharded_dispatch_and_grad(monkeypatch):
     """blur_plane(mesh=…) + FORCE_PALLAS_INTERPRET routes through the
-    shard_map'd kernel (asserted via the trace hook) and its custom_vjp
+    shard_map'd kernel (halo-form vertical pass traced) and its custom_vjp
     backward agrees with differentiating the jnp path."""
-    from kanter_core_tpu.ops import blur as blur_mod
-    from kanter_core_tpu.ops import pallas_blur
-
-    monkeypatch.setattr(blur_mod, "FORCE_PALLAS_INTERPRET", True)
-    calls = []
-    real = pallas_blur._blur_block
-
-    def counting(*a, **k):
-        calls.append(1)
-        return real(*a, **k)
-
-    monkeypatch.setattr(pallas_blur, "_blur_block", counting)
+    calls = _count_passes(monkeypatch)
     mesh = _mesh(8)
     rng = np.random.default_rng(13)
     p = rng.random((64, 128), dtype=np.float32)
     got = np.asarray(jax.jit(lambda x: blur_plane(x, 1.7, mesh=mesh))(p))
     ref = np.asarray(jax.jit(lambda x: _jnp_blur(x, 1.7))(p))
-    assert calls, "sharded Pallas path was not traced"
+    assert any(c[4] for c in calls), "sharded kernel path was not traced"
     assert np.array_equal(got, ref)
 
     g_pal = jax.grad(lambda x: jnp.sum(blur_plane(x, 1.7, mesh=mesh)) ** 2)(p)
@@ -171,29 +175,17 @@ def test_blur_plane_sharded_dispatch_and_grad(monkeypatch):
 
 
 def test_batched_graph_mesh_keeps_sharded_pallas(monkeypatch):
-    """A BatchedGraph over a batch×rows mesh now keeps the Pallas blur: the
+    """A BatchedGraph over a batch×rows mesh keeps the kernel blur: the
     shard_map'd kernel shards over the ROWS axis and composes with the
-    batch vmap, bit-identically to the jnp lowering (previously any mesh
-    forced pallas_ok=False for the whole program)."""
+    batch vmap, bit-identically to the jnp lowering."""
     from jax.sharding import Mesh
 
     from kanter_core_tpu import Node, NodeGraph, NodeType, SlotId
-    from kanter_core_tpu.ops import blur as blur_mod
-    from kanter_core_tpu.ops import pallas_blur
     from kanter_core_tpu.parallel import BatchedGraph
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-
-    monkeypatch.setattr(blur_mod, "FORCE_PALLAS_INTERPRET", True)
-    calls = []
-    real = pallas_blur._blur_block
-
-    def counting(*a, **k):
-        calls.append(1)
-        return real(*a, **k)
-
-    monkeypatch.setattr(pallas_blur, "_blur_block", counting)
+    calls = _count_passes(monkeypatch)
 
     graph = NodeGraph()
     gin = graph.add_node(Node(NodeType.InputGray("in")))
@@ -208,16 +200,19 @@ def test_batched_graph_mesh_keeps_sharded_pallas(monkeypatch):
     batch = np.random.default_rng(3).random((4, 64, 128), dtype=np.float32)
     result = bg(**{key: (bg.shard_batch_arg(batch),)})
     got = np.asarray(result[(out, SlotId(0))][0])
-    assert calls, "sharded Pallas path was not traced under the batch mesh"
+    assert any(c[4] for c in calls), "sharded kernel was not traced under the batch mesh"
     ref = np.stack([np.asarray(jax.jit(lambda x: _jnp_blur(x, 1.5))(b)) for b in batch])
     assert np.array_equal(got, ref)
 
 
-def test_blur_plane_dispatch_is_jnp_on_cpu():
-    """On the CPU backend blur_plane must keep the plain jnp lowering (the
-    Pallas gate is TPU-only); golden bit-exactness depends on it."""
+def test_blur_plane_dispatch_is_jnp_on_cpu(monkeypatch):
+    """On the CPU backend blur_plane keeps the plain jnp lowering (the
+    kernel route is the GPU's); golden bit-exactness depends on it."""
+    from kanter_core_tpu.ops import blur_triton
+
+    monkeypatch.setattr(blur_triton, "_pass_call", None)  # any use would raise
     rng = np.random.default_rng(11)
-    p = rng.random((33, 100), dtype=np.float32)  # unaligned width too
+    p = rng.random((33, 100), dtype=np.float32)
     a = np.asarray(jax.jit(lambda x: blur_plane(x, 2.2))(p))
     b = np.asarray(jax.jit(lambda x: _jnp_blur(x, 2.2))(p))
     assert np.array_equal(a, b)

@@ -3,9 +3,8 @@
 The default pipeline is f32 and bit-exact vs the reference goldens; bf16 is
 the deployment mode for bandwidth/footprint-bound graphs. The design is
 bf16 AT REST, f32 IN FLIGHT: leaves and committed planes store at bf16
-(half the HBM traffic and tier footprint), while every op computes the
-same f32 math as the default pipeline (per-op bf16 rounding measured
-SLOWER on the chip — XLA:TPU wraps each VPU op in converts). These tests
+(half the device-memory traffic and tier footprint), while every op
+computes the same f32 math as the default pipeline. These tests
 pin the contract:
 
 - leaves and outputs are STORED at the pipeline dtype;

@@ -26,7 +26,10 @@ checks (the frozen-fixture suite covers it).
 
 import numpy as np
 import pytest
-from PIL import Image
+
+# Pillow is the oracle here and optional elsewhere (the main path needs it
+# only for Image nodes): skip where it is absent, e.g. a card-only run
+Image = pytest.importorskip("PIL.Image")
 
 import jax
 

@@ -965,14 +965,13 @@ def test_tiled_nan_producing_graph_parity():
 
 
 def test_ao_at_capacity_bands_through_engine(monkeypatch):
-    """VERDICT r4 #7: AO's jnp fallback OOMs at radius 8, 4096^2 on chip
-    (bench_ops row comment) — the engine's capacity machinery absorbs
-    that case because AO is BANDABLE (halo = ao_max_radius rows). Pin the
+    """A large-radius AO at 4096^2 can exceed device memory — the engine's
+    capacity machinery absorbs that case because AO is BANDABLE (halo = ao_max_radius rows). Pin the
     ROUTE at test scale: an AO graph under a budget every full plane
     exceeds goes through the row-banded evaluator (halo 24 < height 128,
     so banding genuinely shrinks the working set) and stays bit-identical
     to the unconstrained dense processor. Radius 2 stands in for the
-    chip's radius-8 case: the engine's band routing is radius-independent
+    radius-8 case: the engine's band routing is radius-independent
     (only the halo row count scales), and radius 8's 193-tap x 3-scale
     chains hit XLA:CPU's compose-chain compile explosion (CLAUDE.md; a
     256^2 dense compile tripped XLA's very-slow-compile alarm when this
@@ -1003,7 +1002,7 @@ def test_ao_at_capacity_bands_through_engine(monkeypatch):
         plain.shutdown_now()
 
     # budget smaller than ONE full 128^2 plane (65536 B): the proactive
-    # gate must band — the same route the chip's OOM retry takes
+    # gate must band — the same route a device OOM retry takes
     monkeypatch.setattr(Engine, "_auto_tile_bytes", lambda self: 50_000)
     tp = TextureProcessor(10_000_000)
     try:
